@@ -43,12 +43,12 @@ def _scenes():
 
 
 def test_golden_images():
-    from PIL import Image
+    from vk3dgaussiansplatting_tpu.io.image import read_png
 
     for name, cls in _scenes().items():
         path = GOLDEN_DIR / f"{name}.png"
         assert path.exists(), f"missing golden {path}; run: python -m tests.test_golden regen"
-        want = np.asarray(Image.open(path))
+        want = read_png(path)
         got = _render(cls)
         diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
         assert diff.max() <= 1, (
@@ -63,10 +63,10 @@ if __name__ == "__main__":
         import jax
 
         jax.config.update("jax_platforms", "cpu")
-        from PIL import Image
+        from vk3dgaussiansplatting_tpu.io.image import write_png
 
         GOLDEN_DIR.mkdir(exist_ok=True)
         for name, cls in _scenes().items():
             img = _render(cls)
-            Image.fromarray(img, mode="RGBA").save(GOLDEN_DIR / f"{name}.png")
+            write_png(GOLDEN_DIR / f"{name}.png", img)
             print("wrote", GOLDEN_DIR / f"{name}.png")

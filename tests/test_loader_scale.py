@@ -5,8 +5,8 @@ transforms + a Morton sort (ResourceManager.cpp:167-300).  The unit tests
 drive the same pipeline on a 384-gaussian fixture; this test generates a
 multi-million-gaussian binary .ply, round-trips it through the native C++
 parser + activation transforms + Morton ordering, cross-checks the native
-and Python parsers on a slice, and renders one frame — closing the scale
-gap flagged in round 2 (VERDICT missing #3).
+and Python parsers on a slice, and renders one frame — covering the scale
+gap of the fixture-size tests.
 
 Opt-in (slow, ~2 GB of disk + a few minutes):
     RUN_SCALE_TESTS=1 python -m pytest tests/test_loader_scale.py -q

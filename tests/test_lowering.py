@@ -1,33 +1,98 @@
-"""Mosaic lowering gate as part of the default pytest run.
+"""CUDA lowering gate: every tile-blend kernel entry point cross-lowers for
+the GPU at garden30k_1080p shapes, on the CPU, with no card.
 
-Runs scripts/lowering_gate.py in a fresh subprocess (the compiled-mode env
-var is read at trace time and traces are cached per process, so it cannot be
-toggled in-process).  This is the regression guard for VERDICT r1 weak #2:
-a Pallas kernel change that fails JAX->Mosaic lowering for the TPU target
-turns this red without any hardware.
+Interpret-mode tests never run the Triton lowering, so a kernel change
+that the GPU route cannot lower would otherwise show only on the card.
+`jax.export` lowers for the "cuda" platform from abstract shapes (no data
+is allocated); the Triton custom call is allowed explicitly.
 """
 
-import os
-import subprocess
-import sys
+import functools
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GATE = os.path.join(REPO, "scripts", "lowering_gate.py")
+import jax
+import jax.numpy as jnp
+import pytest
+from jax import export
+
+from vk3dgaussiansplatting_tpu.core.config import RenderConfig, SortAlgorithm
+from vk3dgaussiansplatting_tpu.ops.keygen import GaussianFrameData, SortElements
+from vk3dgaussiansplatting_tpu.ops.pallas import blend_kernel
+
+N = 5_834_784
+CONFIG = RenderConfig(
+    width=1920, height=1080, capacity_pow_two=False,
+    sort_algorithm=SortAlgorithm.XLA_SORT,
+)
+E = CONFIG.sort_capacity(N)
+T = CONFIG.num_tiles
+P = CONFIG.tile_size ** 2
+S = jax.ShapeDtypeStruct
+ELEMENTS = SortElements(
+    S((E,), jnp.uint32), S((E,), jnp.uint32), S((E,), jnp.uint32),
+    S((), jnp.uint32),
+)
+FRAME = GaussianFrameData(
+    S((N, 4), jnp.float32), S((N, 3), jnp.float32), S((N, 3), jnp.float32),
+    S((N, 2), jnp.float32),
+)
+RANGES = S((T, 2), jnp.uint32)
+STRIP = CONFIG.grid_width * 17  # one of four bands of tile rows
 
 
-def test_all_pallas_kernels_lower_for_tpu():
-    env = dict(os.environ)
-    env.pop("XLA_FLAGS", None)  # no 8-device mesh needed; keep compile fast
-    proc = subprocess.run(
-        [sys.executable, GATE],
-        capture_output=True,
-        text=True,
-        timeout=600,
-        env=env,
-        cwd=REPO,
+def _tiles(batch):
+    fn = functools.partial(
+        blend_kernel.blend_tiles_kernel, config=CONFIG, batch=batch,
+        interpret=False,
     )
-    assert proc.returncode == 0, (
-        f"lowering gate failed:\n--- stdout ---\n{proc.stdout}\n"
-        f"--- stderr ---\n{proc.stderr}"
+    return fn, (ELEMENTS, RANGES, FRAME)
+
+
+def _strip_indexed():
+    def fn(el, rg, fr, base, cc, cl):
+        return blend_kernel.blend_strip_colors_kernel(
+            el, rg, fr, CONFIG, tile_base=base, num_strip_tiles=STRIP,
+            carry_color=cc, carry_logt=cl, interpret=False,
+        )
+
+    return fn, (
+        ELEMENTS, RANGES, FRAME, S((), jnp.int32),
+        S((STRIP, P, 3), jnp.float32), S((STRIP, P), jnp.float32),
     )
-    assert "ALL OK" in proc.stdout
+
+
+def _strip_routed():
+    def fn(el, rg, sp, ca, ci, cc, cl):
+        return blend_kernel.blend_strip_colors_kernel(
+            el, rg, None, CONFIG, tile_base=0, num_strip_tiles=STRIP,
+            carry_color=cc, carry_logt=cl, features=(sp, ca, ci),
+            interpret=False,
+        )
+
+    return fn, (
+        ELEMENTS, RANGES, S((E, 2), jnp.float32), S((E, 4), jnp.float32),
+        S((E, 3), jnp.float32), S((STRIP, P, 3), jnp.float32),
+        S((STRIP, P), jnp.float32),
+    )
+
+
+ENTRY_POINTS = {
+    "blend_tiles_kernel_batch8": functools.partial(_tiles, 8),
+    "blend_tiles_kernel_batch16": functools.partial(_tiles, 16),
+    "blend_strip_colors_kernel_indexed": _strip_indexed,
+    "blend_strip_colors_kernel_routed": _strip_routed,
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_kernel_lowers_for_cuda(entry):
+    fn, args = ENTRY_POINTS[entry]()
+    exp = export.export(
+        jax.jit(fn),
+        platforms=["cuda"],
+        disabled_checks=[
+            export.DisabledSafetyCheck.custom_call("__gpu$xla.gpu.triton")
+        ],
+    )(*args)
+    text = exp.mlir_module()
+    assert "__gpu$xla.gpu.triton" in text
+    assert "tile_blend" in text

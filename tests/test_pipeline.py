@@ -239,46 +239,3 @@ def test_far_depth_keys_roundtrip_exactly():
     want = set(depth_key_np(pv[:, 2], cfg).tolist())
     assert set(d[live].tolist()) == want
     assert min(want) >= 2**31  # the far-depth regime is actually exercised
-
-
-def test_pipeline_capped_branches_match_uncapped():
-    """Pipeline-level wiring of the capped branches (advisor finding,
-    round 2): render_frame with blend_depth_cap set, and the temporal-caps
-    Renderer path, must both match the uncapped pipeline within the +-1 u8
-    contract."""
-    import dataclasses
-
-    from vk3dgaussiansplatting_tpu.pipeline import render_frame
-
-    config = dataclasses.replace(TEST_CONFIG, blend_depth_cap=64)
-    scene = TestSortScene(aspect=config.aspect)
-    scene.init()
-    scene.camera.set_aspect(config.aspect)
-    table = scene.gaussians()
-
-    base = Renderer(config, use_pallas_blend=False)
-    base.init_for_scene(table)
-    ref = np.asarray(base.draw(scene.camera).image_u8).astype(np.int32)
-
-    # static-cap branch of render_frame
-    view, proj = scene.camera.matrices()
-    out = render_frame(
-        base.table,
-        jnp.asarray(view),
-        jnp.asarray(proj),
-        jnp.asarray(scene.camera.position, dtype=jnp.float32),
-        config=config,
-        capacity=base.capacity,
-        use_pallas_blend=True,
-    )
-    got = np.asarray(out.image_u8).astype(np.int32)
-    assert np.abs(got - ref).max() <= 1
-
-    # temporal-caps Renderer path (two frames: escalation then steady)
-    temporal = Renderer(config, use_pallas_blend=True)
-    temporal.init_for_scene(table)
-    assert temporal.temporal_caps
-    for _ in range(2):
-        got_t = np.asarray(temporal.draw(scene.camera).image_u8).astype(np.int32)
-        assert np.abs(got_t - ref).max() <= 1
-    assert temporal._caps is not None

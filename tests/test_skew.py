@@ -113,7 +113,7 @@ def test_slab_overflow_drops_not_corrupts():
 
 
 def test_hot_tile_exceeding_slab_renders_without_drops():
-    """VERDICT r1 item 6: a tile holding >2x slab_capacity elements must
+    """A tile holding >2x slab_capacity elements must
     render equal to single-device instead of dropping.  The depth-banded
     exchange splits every tile's range over all devices, so per-slab load is
     ~1/ndev of a device's elements regardless of tile skew."""
@@ -177,7 +177,7 @@ def test_hot_tile_exceeding_slab_renders_without_drops():
 
 
 def test_strip_window_overflow_is_reported():
-    """Advisor r3 (medium): an under-sized per-phase strip window must not
+    """An under-sized per-phase strip window must not
     fail silently — the default return surfaces the dropped-element count,
     and the drop counter is the only divergence signal (the image stays
     finite and only ever loses elements)."""

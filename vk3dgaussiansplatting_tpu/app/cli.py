@@ -24,7 +24,7 @@ from ..utils import log
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="vk3dgs-tpu", description="TPU-native 3D gaussian splatting renderer"
+        prog="vk3dgs", description="3D gaussian splatting renderer (JAX)"
     )
     p.add_argument(
         "--scene",
@@ -53,8 +53,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="force the CPU backend")
     p.add_argument("--slack", type=int, default=None,
                    help="sort-capacity slack per tile (default: reference's 1024)")
-    p.add_argument("--depth-cap", type=int, default=0,
-                   help="saturation-truncation cap (ops/capped.py); 0 = off")
     return p
 
 
@@ -98,8 +96,6 @@ def main(argv=None) -> int:
     kwargs = {}
     if args.slack is not None:
         kwargs["capacity_slack_per_tile"] = args.slack
-    if args.depth_cap:
-        kwargs["blend_depth_cap"] = args.depth_cap
     config = RenderConfig(
         width=args.width,
         height=args.height,

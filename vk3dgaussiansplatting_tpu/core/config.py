@@ -1,5 +1,5 @@
-"""Render configuration — the TPU-native replacement for the reference's
-compile-time tunables.
+"""Render configuration — the replacement for the reference's compile-time
+tunables.
 
 The reference scatters its configuration across preprocessor defines
 (`TILE_SIZE` Renderer.h:146 / Common.glsl:12, `GPU_SORT_ALGORITHM`
@@ -30,15 +30,9 @@ class SortAlgorithm(enum.Enum):
     """Sort strategy selection (reference: `GPU_SORT_ALGORITHM`, Renderer.h:33).
 
     XLA_SORT  — `jax.lax.sort` on the (tile, depth) words + the index as a
-                deterministic third key (order-equal to stable, ~20% faster;
-                argument in ops/sort.py).  The production tier on TPU: the
-                reference's role-equivalent of RadixSort.  There is no
-                Pallas LSD-radix tier on this stack BY MEASUREMENT — every
-                radix formulation (per-run scatter stores, crossbar
-                permutes, chunked merges) prices above lax.sort on the
-                probed v5e primitives (85 ns / [8,128] crossbar, ~600 ns
-                small-DMA issue, ~6 ns/row gather); the probe table and
-                design-space analysis live in docs/PERFORMANCE.md.
+                deterministic third key (order-equal to stable; argument in
+                ops/sort.py).  The production tier: the reference's
+                role-equivalent of RadixSort.
     BITONIC   — bitonic merge network (the reference's alternative backend,
                 BitonicMergeSort.{h,cpp}); requires power-of-two capacity.
     AUTO      — XLA_SORT everywhere (kept for config compatibility).
@@ -105,110 +99,6 @@ class RenderConfig:
     # Pad capacity to the next power of two like the reference (needed by its
     # bitonic path; kept for behavioural parity, optional otherwise).
     capacity_pow_two: bool = True
-    # Element-expansion strategy in keygen:
-    #   "pallas"  — windowed Pallas kernel (ops/pallas/expand_kernel.py):
-    #               compare-count + vreg crossbar gathers; no XLA scatter,
-    #               no per-row gather.  Production tier on TPU.  (A
-    #               paired-window 2-windows-per-crossbar variant was built
-    #               and retired in r4: the kernel is per-window-overhead
-    #               bound, not crossbar bound, so window sizing supersedes
-    #               pairing — docs/PERFORMANCE.md.)
-    #               Under a prefilter (thinned counts) "pallas" dispatches
-    #               to the streamed-window kernel below automatically.
-    #   "stream"  — streamed-window Pallas kernel: STREAM_K windows per
-    #               grid step backed by ONE contiguous chunk-buffer DMA
-    #               (double-buffered across steps); per-window compute
-    #               identical to "pallas", the per-window DMAs and grid
-    #               overhead amortized away.  Wins in the thinned
-    #               (prefilter steady) regime (r5: 20.9 vs 25.5 ms); the
-    #               dense regime keeps the per-window kernel (its fixed
-    #               chunk buffer over-fetches when spans fit one chunk).
-    #   "repeat"  — jnp.repeat (XLA scatter + one ~6.5 ns/row gather).
-    #   "auto"    — pallas on TPU (stream under a prefilter), repeat
-    #               elsewhere.
-    expansion_method: str = "auto"
-    # Pallas blend batch width (elements per cooperative batch; the
-    # reference's ENTIRE_GROUP_SIZE=256 widened to fill VPU lanes).  Must be
-    # a multiple of 128 (DMA lane alignment).  Smaller batches waste fewer
-    # trailing lanes on short tile ranges at the cost of more DMAs; the
-    # exclusive cumprod is log2(bk) [256, bk] multiplies per batch.  v5e
-    # sweep 256/512/768/1024 = 45.8/39.1/36.2/48.5 ms at garden steady
-    # state (2026-08-21, r4) -> 768.
-    blend_batch_k: int = 768
-    # Saturation-truncation cap (ops/capped.py): > 0 blends only each tile's
-    # first `cap` sorted elements and gathers features for those alone,
-    # falling back in-graph to the full blend when any tile is not provably
-    # exact (range fit the cap, or all pixels saturated).  0 disables.
-    # Exactness argument + float-regrouping caveat in ops/capped.py.
-    blend_depth_cap: int = 0
-    # Upper bound for per-tile temporal caps (ops/capped.py temporal
-    # policy); also the static DMA window of the run compactor.  Multiple
-    # of 128.  Tiles needing more than this never validate and force the
-    # full-blend fallback every frame.
-    blend_cap_max: int = 4096
-    # Packed-layout budget per tile beyond roundup(blend_depth_cap, 128)
-    # for the temporal policy (escalated tiles + alignment).  The packed
-    # size is STATIC, so gather/blend cost scales with this directly.
-    packed_slack_per_tile: int = 256
-    # Temporal-caps escalation margin: a saturation-valid tile (r > cap)
-    # keeps escalating until its per-pixel T at the cap is below
-    # transmittance_stop * this factor.  Validity (the exact fallback
-    # decision) stays at transmittance_stop; the margin only gives the
-    # converged caps headroom so small per-frame camera motion cannot flip
-    # marginal tiles invalid (one invalid tile costs a full-blend
-    # fallback frame).  Margin-driven growth is gentle (+128 per frame vs
-    # the 2x jump for genuinely invalid tiles) so the packed budget
-    # converges instead of overshooting into overflow-decay limit cycles.
-    cap_escalate_margin: float = 0.3
-    # Depth-threshold publication bar (ops/prefilter.py), as a multiple of
-    # transmittance_stop: a valid tile publishes its capped-end depth as
-    # the next frame's prefilter threshold when every pixel's T is below
-    # stop * this factor.  Sits between the escalation margin (0.3x, the
-    # caps' convergence target) and the validation bar (4x): publishing at
-    # 1.0 keeps a 4x transmittance band against motion-induced validation
-    # failures while covering far more tiles than the margin bar would
-    # (fog measurement r4: margin-bar publication reached only 59% of
-    # tiles because the packed budget stalls cap growth).
-    thr_publish_margin: float = 1.0
-    # Saturation-driven cap decay (the packed-occupancy controller): a
-    # truncating tile whose end-of-cap transmittance is below
-    # transmittance_stop * cap_escalate_margin * THIS factor decays its cap
-    # by 128/frame — the cap walks down toward the true saturation depth
-    # instead of pinning whatever the escalation overshot.  The decayed cap
-    # might undershoot (T is only known at the current end); validation
-    # catches that (patched frame + 2x re-escalation), and the ~600x
-    # transmittance band between the decay stop and validation failure
-    # makes it rare.  Gather/blend/layout cost scales with steady packed
-    # occupancy, so this is a direct perf knob.  0 disables.
-    cap_decay_margin: float = 0.02
-    # Temporal-caps VALIDATION threshold, as a multiple of
-    # transmittance_stop.  A capped tile passes when every pixel's T at the
-    # cap is below stop * this factor; the dropped tail is therefore
-    # <= stop * factor per pixel (4e-4 default) — ~1/10 of an 8-bit step,
-    # the same error class the reference's own per-pixel early-out
-    # discards (it stops at T < 1e-4 and drops everything after).
-    # Decoupling validation (4x stop) from the escalation target
-    # (0.3x stop) puts a 13x hysteresis band between them, so per-frame
-    # camera motion cannot flip marginal tiles in and out of validity
-    # (1-3 flipping tiles cost a full-blend fallback frame each).  The
-    # blend kernel's in-loop early-out semantics still use
-    # transmittance_stop exactly.  Bound documented in docs/TOLERANCES.md.
-    cap_validation_factor: float = 4.0
-    # Damped prefilter-threshold reset (r5, VERDICT r4 #4): when a filtered
-    # tile must stop filtering (validation miss, or it no longer clears the
-    # publication bar), snap-resetting thr to SENTINEL re-admits the tile's
-    # ENTIRE dropped tail next frame — thousands of tiles churning this way
-    # spike the filtered live count past tight steady capacities (the
-    # measured steady-frac 0.54 instability, BENCH_EXTRA r4).  With damping
-    # on, the threshold instead DOUBLES per frame (monotonically admitting
-    # more depth — always conservative-safe, see ops/prefilter.py; depth
-    # keys compress the scene toward small values, so doubling is
-    # geometric in content depth where a halfway-to-SENTINEL step is
-    # effectively a snap), with an additive floor for progress and a snap
-    # at half the key range (<= ~6 ramp frames from any threshold).
-    # Validation-missed filtered tiles are still flagged not-ok while the
-    # ramp runs.
-    thr_reset_damp: bool = True
 
     # ----- derived static quantities --------------------------------------
 

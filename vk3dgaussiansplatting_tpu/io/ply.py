@@ -1,6 +1,6 @@
 """PLY point-cloud IO for 3D Gaussian Splatting scenes.
 
-TPU-native equivalent of the reference's hapPLY-based loader
+Equivalent of the reference's hapPLY-based loader
 (ResourceManager::loadGaussians, ResourceManager.cpp:167-300).  Hand-rolled
 reader (no external dependency): parses the header, memory-maps the body, and
 returns per-property numpy columns — then `models.gaussians.from_raw_ply_columns`
@@ -245,11 +245,8 @@ def load_gaussians(path: str | os.PathLike, *, morton_sort: bool = True):
     Equivalent of ResourceManager::loadGaussians (ResourceManager.cpp:167-300):
     parse columns, apply activations, Morton-sort.
 
-    Performance note (TPU): the Morton order exists for GPU cache coherency;
-    on TPU it makes the post-sort feature gather's indices partially
-    depth-sorted, which XLA's gather runs ~2x slower than decorrelated
-    indices (docs/PERFORMANCE.md).  `morton_sort=False` keeps file order;
-    callers chasing frame time can additionally shuffle the table — the
+    The Morton order exists for cache coherency of the blend's
+    feature fetches by index.  `morton_sort=False` keeps file order — the
     gaussian order is semantically free (it only breaks exact (tile, depth)
     ties, which the reference leaves nondeterministic).
     """

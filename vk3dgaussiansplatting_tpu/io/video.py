@@ -1,6 +1,6 @@
 """Frame-sequence output — headless "present" for camera paths.
 
-The reference presents frames to a swapchain (Swapchain.cpp); headless TPU
+The reference presents frames to a swapchain (Swapchain.cpp); headless
 rendering writes camera-path flythroughs to MP4 (imageio/ffmpeg when
 available), animated GIF (PIL fallback), or a PNG sequence directory.
 """

@@ -2,9 +2,9 @@
 
 The reference stores gaussians as an array-of-structs `GaussianData`
 (ShaderStructs.h:59-70: pos/scale/rot/shCoeffs[16]/color/covariance, 352 B).
-The TPU-native layout is a structure-of-arrays pytree: each attribute is a
+Here the layout is a structure-of-arrays pytree: each attribute is a
 contiguous `[N, ...]` array so every per-gaussian pass is a pure vectorized map
-and XLA can lay fields out independently in HBM.
+and XLA can lay fields out independently in device memory.
 
 The mutable `color`/`covariance` fields the reference writes back from
 InitSortList (InitSortList.comp:123-127) are *not* part of the model: in SSA

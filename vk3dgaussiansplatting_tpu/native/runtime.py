@@ -2,7 +2,7 @@
 
 The reference's host side is C++ (engine loop, hapPLY .ply parsing + the
 per-gaussian activation transforms + Morton sort, ResourceManager.cpp:167-300).
-This module loads the TPU framework's C++ equivalent via ctypes when built
+This module loads the framework's C++ equivalent via ctypes when built
 (see native/gsnative.cpp, built by native/build.sh) and transparently falls
 back to the pure-numpy implementations otherwise.
 """

@@ -6,7 +6,7 @@ The reference selects between RadixSort and BitonicMergeSort at compile time
 BIG_FLIP / BIG_DISPERSE / LOCAL_DISPERSE dispatches over a power-of-two
 element buffer, comparing full 64-bit keys.
 
-TPU-native formulation: the compare-exchange network is data-parallel over
+JAX formulation: the compare-exchange network is data-parallel over
 the whole array, so each stage is a reshape + elementwise min/max on the
 (tile, depth, index) triple, comparing lexicographically on the split 64-bit
 key.  The stage schedule (k: block size doubling; j: distance halving —

@@ -1,4 +1,4 @@
-"""Tiled front-to-back alpha blending — the RenderGaussians pass.
+"""Tiled front-to-back alpha blending — the RenderGaussians pass, XLA tier.
 
 The reference kernel (RenderGaussians.comp) assigns a 16x16 thread group to
 each screen tile and blends the tile's sorted element range front-to-back with
@@ -8,28 +8,28 @@ a sequential transmittance recurrence per pixel:
     color += T * alpha * rgb                    (:131)
     T     *= (1 - alpha), stop when T < 1e-4    (:133-142)
 
-The TPU-native formulation exposes the parallelism the recurrence hides: the
+This plain-XLA formulation exposes the parallelism the recurrence hides: the
 transmittance before element j is a *product* over eligible earlier elements
 of (1 - alpha), so
 
     T_excl(j, p) = exp( sum_{k<j, eligible} log1p(-alpha_k(p)) )
 
-turns the per-pixel scan into a segmented cumulative sum (VPU/MXU friendly),
-and the early-termination flag becomes a pure mask: because T_excl is
-monotonically non-increasing, "a previous element terminated this pixel" is
-exactly `T_excl < 1e-4` (the terminating element itself still contributes,
-matching the reference's order of color-update before the break).
+turns the per-pixel scan into a segmented cumulative sum, and the
+early-termination flag becomes a pure mask: because T_excl is monotonically
+non-increasing, "a previous element terminated this pixel" is exactly
+`T_excl < 1e-4` (the terminating element itself still contributes, matching
+the reference's order of color-update before the break).  The sum restarts
+at every tile (a segmented scan), so its magnitude never exceeds one tile's
+terms and f32 keeps the per-tile precision at any scene size.
 
-Numerical contract (see tests/test_blend.py): the log-space product matches
-the sequential reference recurrence to ~1e-5 relative in T; output images are
-compared to the sequential numpy oracle with an 8-bit tolerance of +-1.
-log1p(-alpha) is clamped to >= -87 so an alpha of exactly 1.0 (possible for
-synthetic opacity-1 gaussians) yields T_excl -> 0 rather than -inf/NaN,
-observationally identical to the reference's T = 0 termination.
+Numerical contract (tests/test_pipeline.py): output images match the
+sequential numpy oracle with an 8-bit tolerance of +-1.  log1p(-alpha) is
+clamped to >= -87 so an alpha of exactly 1.0 (possible for synthetic
+opacity-1 gaussians) yields T_excl -> 0 rather than -inf/NaN, observationally
+identical to the reference's T = 0 termination.
 
-This module is the *vectorized XLA tier* (runs on CPU/TPU, memory O(E * 256));
-the production TPU tier is the Pallas kernel in ops/pallas/blend_kernel.py
-with identical math, streaming batches instead of materializing [E, 256].
+Memory is O(E * 256): this is the CPU tier and the plain reference the GPU
+tile-blend kernel (ops/pallas/blend_kernel.py) is checked against.
 """
 
 from __future__ import annotations
@@ -47,9 +47,9 @@ def gather_element_features(elements: SortElements, frame: GaussianFrameData):
     """Gather per-gaussian frame data into sorted-element order.
 
     The reference's render kernel chases `sortData[i].z -> gaussians[idx]`
-    per element per tile from L2 (RenderGaussians.comp:92-95); on TPU we hoist
-    that into one big contiguous XLA gather so the blend kernel streams
-    sequential HBM.  Returns (screen_pos[E,2], color_alpha[E,4], cov_inv[E,3]).
+    per element per tile (RenderGaussians.comp:92-95); the XLA tier hoists
+    that into one gather.  Returns (screen_pos[E,2], color_alpha[E,4],
+    cov_inv[E,3]).
     """
     idx = jnp.where(
         elements.index == jnp.uint32(SENTINEL), jnp.uint32(0), elements.index
@@ -59,6 +59,56 @@ def gather_element_features(elements: SortElements, frame: GaussianFrameData):
         frame.color_alpha[idx],
         frame.cov_inv[idx],
     )
+
+
+SCAN_CHUNK = 128  # rows per chunk of the two-level segmented cumsum
+
+
+def _segmented_cumsum_chunk(x, seg_first):
+    """Segmented inclusive cumsum along axis 0 of one chunk x [C, ...]
+    (Hillis-Steele: log2(C) shifted adds that never cross a restart, so
+    every partial sum stays inside one segment)."""
+    c = x.shape[0]
+    f = seg_first.reshape((c,) + (1,) * (x.ndim - 1))
+    shift = 1
+    while shift < c:
+        x_prev = jnp.concatenate([jnp.zeros_like(x[:shift]), x[:-shift]])
+        f_prev = jnp.concatenate([jnp.ones_like(f[:shift]), f[:-shift]])
+        x = jnp.where(f, x, x + x_prev)
+        f = f | f_prev
+        shift *= 2
+    return x
+
+
+def segmented_cumsum(x, seg_first):
+    """Inclusive cumsum of x [E, ...] along axis 0, restarting at every row
+    where seg_first [E] is True.
+
+    Two-level: a segmented scan inside each SCAN_CHUNK-row chunk, then the
+    same function over the chunks' trailing sums carries segments across
+    chunk boundaries.  Every partial sum stays inside one segment, so f32
+    keeps per-segment precision however long the list is (a global cumsum
+    rebased at segment starts cancels catastrophically at garden scale)."""
+    e = x.shape[0]
+    if e <= SCAN_CHUNK:
+        return _segmented_cumsum_chunk(x, seg_first)
+    nc = -(-e // SCAN_CHUNK)
+    pad = nc * SCAN_CHUNK - e
+    xp = jnp.concatenate([x, jnp.zeros((pad,) + x.shape[1:], x.dtype)])
+    fp = jnp.concatenate([seg_first, jnp.ones((pad,), bool)])
+    xc = xp.reshape((nc, SCAN_CHUNK) + x.shape[1:])
+    fc = fp.reshape(nc, SCAN_CHUNK)
+    local = jax.vmap(_segmented_cumsum_chunk)(xc, fc)
+    # Segment sum reaching each chunk's end, carried across chunks that
+    # hold no restart.
+    reach = segmented_cumsum(local[:, -1], fc.any(axis=1))
+    carry_in = jnp.concatenate([jnp.zeros_like(reach[:1]), reach[:-1]])
+    before_restart = jnp.cumsum(fc, axis=1) == 0
+    bshape = (nc, SCAN_CHUNK) + (1,) * (x.ndim - 1)
+    out = local + jnp.where(
+        before_restart.reshape(bshape), carry_in[:, None], 0.0
+    )
+    return out.reshape((nc * SCAN_CHUNK,) + x.shape[1:])[:e]
 
 
 def _pixel_coords(config: RenderConfig):
@@ -164,8 +214,8 @@ def blend_strip_colors_xla(
     )
 
     # Elements outside the tile's [start, end) range contribute nothing (the
-    # reference loop bounds); with sentinel-free live data every live element
-    # lies in its tile's range except the final-slot quirk (end = E-1).
+    # reference loop bounds); every live element lies in its tile's range
+    # except the final-slot quirk (end = E-1).
     in_range = (
         jnp.arange(e, dtype=jnp.uint32)[:, None] < ranges[tile_i, 1][:, None]
     )
@@ -174,11 +224,13 @@ def blend_strip_colors_xla(
         jnp.maximum(jnp.log1p(-alpha), jnp.float32(LOG_T_MIN)),
         jnp.float32(0.0),
     )
-    # Segmented exclusive cumsum: global cumsum rebased at each tile's start.
-    cs_excl = jnp.cumsum(log_term, axis=0) - log_term
-    seg_start = ranges[tile_i, 0].astype(jnp.int32)  # first slot of e's tile
-    base = cs_excl[seg_start]
-    log_t_excl = cs_excl - base
+    # Segmented inclusive cumsum, restarting at every tile change of the
+    # sorted list; exclusive = inclusive - own term.
+    seg_first = jnp.concatenate(
+        [jnp.ones((1,), bool), tile[1:] != tile[:-1]]
+    )
+    cs_incl = segmented_cumsum(log_term, seg_first)
+    log_t_excl = cs_incl - log_term
     if carry_logt is not None:
         log_t_excl = log_t_excl + carry_logt[tile_loc_c]
     t_excl = jnp.exp(log_t_excl)
@@ -199,17 +251,13 @@ def blend_strip_colors_xla(
         colors = carry_color + colors
 
     # Outgoing log-transmittance: per strip tile, the inclusive log-term sum
-    # over its [start, end) range (plus carry).  Computed from the inclusive
-    # cumsum at the range endpoints; empty ranges pass the carry through.
-    cs_incl = jnp.cumsum(log_term, axis=0)  # [E, P]
+    # over its [start, end) range (plus carry), read at the range's last
+    # element; empty ranges pass the carry through.
     strip_ids = tile_base + jnp.arange(t_s, dtype=jnp.int32)
     r_start = ranges[strip_ids, 0].astype(jnp.int32)
     r_end = ranges[strip_ids, 1].astype(jnp.int32)
     hi = cs_incl[jnp.clip(r_end - 1, 0, e - 1)]
-    lo = jnp.where(
-        (r_start > 0)[:, None], cs_incl[jnp.clip(r_start - 1, 0, e - 1)], 0.0
-    )
-    seg_total = jnp.where((r_end > r_start)[:, None], hi - lo, 0.0)
+    seg_total = jnp.where((r_end > r_start)[:, None], hi, 0.0)
     logt_end = seg_total if carry_logt is None else carry_logt + seg_total
     return colors, logt_end
 
@@ -232,8 +280,8 @@ def blend_tiles_xla(
 ):
     """Vectorized blend over all tiles at once (XLA tier).
 
-    Memory scales as O(E * tile_size^2); intended for tests and small scenes.
-    Returns a float32 [H, W, 3] image (pre-quantization).
+    Memory scales as O(E * tile_size^2); intended for the CPU, tests and
+    small scenes.  Returns a float32 [H, W, 3] image (pre-quantization).
 
     `origin_y`: absolute pixel row of this image's first row — nonzero when
     blending a sharded strip whose tile ids are strip-local but whose gaussian

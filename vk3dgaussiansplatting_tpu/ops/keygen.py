@@ -1,12 +1,12 @@
-"""Sort-key generation — the InitSortList pass, TPU-native.
+"""Sort-key generation — the InitSortList pass.
 
 The reference kernel (InitSortList.comp) runs one thread per gaussian: cull,
 compute the depth key and 2D covariance, evaluate SH color, then *atomically*
 allocate one sort element per overlapped tile (`atomicAdd` on a global
 counter, InitSortList.comp:131) and write `{tileKey, depthKey, gaussianIdx}`.
 
-TPU/XLA has no atomics and no dynamic output shapes, so the allocation is
-re-derived as a deterministic prefix-sum plan:
+XLA has no dynamic output shapes, so the allocation is re-derived as a
+deterministic prefix-sum plan:
 
   1. per-gaussian overlap counts  c_i = w_i * h_i   (0 if culled)
   2. exclusive scan               off_i = sum_{k<i} c_k
@@ -76,51 +76,11 @@ def cull_mask(pos_view, ndc, config: RenderConfig):
     return near_ok & ndc_ok
 
 
-def _frame_geometry(table, view, proj, config):
-    """Shared projection front half of InitSortList: view transform, cull,
-    depth keys, EWA covariance, screen position, tile extents, and the
-    per-gaussian emit mask (cull AND optional prefilter).  One
-    implementation feeds both generate_sort_elements and the
-    expansion-free counting probe so the steady-switch feasibility
-    estimate can never drift from the real keygen (r4 code review)."""
-    pos_view = project.view_transform(table.position, view)
-    ndc = project.ndc_position(pos_view, proj)
-    visible = cull_mask(pos_view, ndc, config)
-    depth = project.depth_key(pos_view[:, 2], config)
-    cov2d = project.compute_cov2d(
-        table.scale, table.rot, pos_view, view, config
-    )
-    screen_pos = project.screen_space_position(pos_view, proj, config)
-    extents = project.tile_extents(screen_pos, cov2d, config)
-    return pos_view, visible, depth, cov2d, screen_pos, extents
-
-
-def _emit_mask(visible, screen_pos, extents, depth, config, depth_thr):
-    if depth_thr is None:
-        return visible
-    from . import prefilter
-
-    dil = prefilter.dilate_thresholds(depth_thr, config)
-    keep = prefilter.gaussian_keep_mask(
-        screen_pos, extents, depth, dil, config
-    )
-    return visible & keep
-
-
-def count_live_elements(table, view, proj, cam_pos, config, depth_thr=None):
-    """Live sort-element count WITHOUT the expansion (projection + extents
-    + optional prefilter + cumsum only).  Compiles in seconds — used to
-    probe whether the prefiltered list fits a smaller steady capacity
-    before paying the steady program set's compiles
-    (pipeline.ChainedTemporalPlan.try_steady_switch)."""
-    _pv, visible, depth, _c2, screen_pos, extents = _frame_geometry(
-        table, view, proj, config
-    )
-    emit = _emit_mask(visible, screen_pos, extents, depth, config, depth_thr)
-    w = extents[:, 2] - extents[:, 0]
-    h = extents[:, 3] - extents[:, 1]
-    counts = jnp.where(emit, w * h, 0).astype(jnp.int32)
-    return jnp.sum(counts)
+def expand_rows(packed, counts, capacity: int):
+    """Row i of packed [N, C] repeated counts[i] times, truncated or padded
+    to `capacity` rows (jnp.repeat: a cumsum, a scatter of row starts and
+    one row gather).  Slots past sum(counts) hold unspecified rows."""
+    return jnp.repeat(packed, counts, axis=0, total_repeat_length=capacity)
 
 
 def generate_sort_elements(
@@ -130,7 +90,6 @@ def generate_sort_elements(
     cam_pos,
     config: RenderConfig,
     capacity: int,
-    depth_thr=None,
 ):
     """Full InitSortList pass over the gaussian table.
 
@@ -141,21 +100,21 @@ def generate_sort_elements(
       config: static render config (trace-time constants, the push-constant/
         spec-constant equivalent).
       capacity: static sort-element capacity E.
-      depth_thr: optional [num_tiles] uint32 temporal depth-threshold map
-        (ops/prefilter.py): gaussians provably behind every touched tile's
-        threshold emit no elements, so the expansion/sort/ranges run on a
-        smaller live list (and, with a matching smaller `capacity`, smaller
-        programs).  None or an all-SENTINEL map reproduces the reference's
-        unfiltered behavior bit-for-bit.
 
     Returns (SortElements, GaussianFrameData).
     """
     pos = table.position
     n = pos.shape[0]
 
-    pos_view, visible, depth, cov2d, screen_pos, extents = _frame_geometry(
-        table, view, proj, config
+    pos_view = project.view_transform(pos, view)
+    ndc = project.ndc_position(pos_view, proj)
+    visible = cull_mask(pos_view, ndc, config)
+    depth = project.depth_key(pos_view[:, 2], config)
+    cov2d = project.compute_cov2d(
+        table.scale, table.rot, pos_view, view, config
     )
+    screen_pos = project.screen_space_position(pos_view, proj, config)
+    extents = project.tile_extents(screen_pos, cov2d, config)
 
     # SH color (InitSortList.comp:122-126). The direction normalize produces
     # NaN for a gaussian exactly at the camera position; such gaussians are
@@ -174,8 +133,6 @@ def generate_sort_elements(
         jnp.stack([cov2d[:, 2], -cov2d[:, 1], cov2d[:, 0]], axis=-1)
         * det_inv[:, None]
     )
-    # (concatenate, not .at[:, 3].set — column-indexed updates lower to an
-    # XLA scatter, banned in the frame path.)
     color_alpha = jnp.concatenate(
         [
             color_alpha[:, :3],
@@ -187,68 +144,34 @@ def generate_sort_elements(
     # --- element allocation (scan replaces atomicAdd) ---------------------
     w = extents[:, 2] - extents[:, 0]
     h = extents[:, 3] - extents[:, 1]
-    emit = _emit_mask(visible, screen_pos, extents, depth, config, depth_thr)
-    counts = jnp.where(emit, w * h, 0).astype(jnp.int32)
+    counts = jnp.where(visible, w * h, 0).astype(jnp.int32)
     cum = jnp.cumsum(counts)
     total = cum[-1] if n > 0 else jnp.int32(0)
     offsets = cum - counts  # exclusive
 
     # Fixed-capacity expansion: slot -> gaussian id.  Truncation at capacity
     # is the reference's overflow-drop rule; padded tail slots are masked
-    # below.  Two equivalent strategies (config.expansion_method):
-    #   * searchsorted: slot j belongs to the first gaussian with
-    #     cum(counts) > j — gather-only binary search (XLA TPU scatter, which
-    #     jnp.repeat uses internally, measured ~100 ms at 8M capacity).
-    #   * repeat: jnp.repeat(total_repeat_length=capacity).
+    # below.  Every per-slot value, the gaussian id included, rides ONE
+    # row gather inside jnp.repeat as a column of a packed [N, 6] row.
     slot = jnp.arange(capacity, dtype=jnp.int32)
     live = slot < jnp.minimum(total, capacity)
-
-    packed_cols = [
-        jnp.arange(n, dtype=jnp.int32),
-        offsets,
-        jnp.maximum(w, 1),
-        extents[:, 0],
-        extents[:, 1],
-        depth.astype(jnp.int32),
-    ]
-    method = config.expansion_method
-    if method == "auto":
-        method = "pallas" if jax.default_backend() == "tpu" else "repeat"
-    if method in ("pallas", "stream"):
-        # Pallas monotone-expansion kernels (ops/pallas/expand_kernel.py):
-        # windowed compare-count + vreg crossbar gathers; avoids both the
-        # XLA scatter inside jnp.repeat (~100 ms at 8M) and its ~6.5 ns/row
-        # gather.  Bit-identical to the repeat path (tests/test_expand.py).
-        from .pallas import expand_kernel
-
-        if method == "stream" or (method == "pallas" and depth_thr is not None):
-            # Prefilter-thinned counts (mean ~1 live element/source row)
-            # stretch window spans past one 512-row chunk; the streamed
-            # kernel amortizes the per-window DMAs + grid overhead across
-            # STREAM_K-window steps there (r5 device A/B: 20.9 vs 25.5 ms
-            # for the wide-span kernel at steady capacity).  Dense
-            # unfiltered counts keep the per-window kernel — spans fit one
-            # chunk and the streamed buffer over-fetches (34.6 vs 29.1 ms).
-            cols, _ = expand_kernel.expand_rows_streamed(
-                packed_cols, counts, capacity
-            )
-        else:
-            cols, _ = expand_kernel.expand_rows(
-                packed_cols, counts, capacity, wide_span=False
-            )
-    else:
-        # XLA tier: gathers cost ~6.5 ns/row *independent of row width*
-        # (measured), so the expansion performs exactly ONE row gather: all
-        # per-slot values — including the gaussian id — ride the single
-        # take() inside jnp.repeat as columns of a packed row.
-        # (searchsorted expansion would be log2(N) gathers: 4.6x slower.)
-        packed = jnp.stack(packed_cols, axis=-1)  # [N, 6] i32
-        g = jnp.repeat(packed, counts, axis=0, total_repeat_length=capacity)
-        cols = [g[:, k] for k in range(len(packed_cols))]
+    packed = jnp.stack(
+        [
+            jnp.arange(n, dtype=jnp.int32),
+            offsets,
+            jnp.maximum(w, 1),
+            extents[:, 0],
+            extents[:, 1],
+            # u32 depth keys ride as their i32 bit pattern.
+            jax.lax.bitcast_convert_type(depth, jnp.int32),
+        ],
+        axis=-1,
+    )
+    g = expand_rows(packed, counts, capacity)
+    cols = [g[:, k] for k in range(packed.shape[1])]
     gauss_of_slot = cols[0]
     local = slot - cols[1]
-    # Dead slots may carry zero rows out of the pallas expansion; keep the
-    # (masked-out) division defined.
+    # Dead slots are masked below; keep their division defined.
     gw_safe = jnp.maximum(cols[2], 1)
     # Row-major within the gaussian's tile rect (InitSortList.comp:133-150).
     ly = local // gw_safe
@@ -260,7 +183,9 @@ def generate_sort_elements(
     sent = jnp.uint32(SENTINEL)
     elements = SortElements(
         tile=jnp.where(live, tile_key, sent),
-        depth=jnp.where(live, cols[5].astype(jnp.uint32), sent),
+        depth=jnp.where(
+            live, jax.lax.bitcast_convert_type(cols[5], jnp.uint32), sent
+        ),
         index=jnp.where(live, gauss_of_slot.astype(jnp.uint32), sent),
         count=jnp.minimum(total, capacity).astype(jnp.uint32),
     )

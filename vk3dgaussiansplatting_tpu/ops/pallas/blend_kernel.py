@@ -1,32 +1,35 @@
-"""Pallas TPU blend kernel — the production RenderGaussians tier.
+"""Tile blend kernel for NVIDIA GPUs — the RenderGaussians pass in Pallas
+(Triton route).
 
-Maps the reference's 16x16-thread-per-tile cooperative kernel
-(RenderGaussians.comp) onto the TPU's VPU/MXU:
+Follows the reference's own GPU design (RenderGaussians.comp:81-144):
 
-  * grid = screen tiles (sequential programs on the TensorCore; all
-    parallelism lives in the [256 pixels x K elements] batch shapes);
-  * element data is pre-gathered into sorted order as a *feature-major*
-    [16, E] array so each batch is one lane-aligned DMA slice [16, K]
-    (Mosaic requires 128-lane-aligned slices; an element-major [E,16]
-    layout cannot be sliced).  Batches start at K-aligned offsets with
-    validity masks against the tile's [start, end) range;
-  * the per-pair falloff f = -0.5(a dx^2 + c dy^2) - b dx dy is evaluated
-    directly on the VPU in [P, K] orientation.  (A bilinear MXU formulation
-    f = E6 . [u^2,v^2,uv,u,v,1] cancels catastrophically — expanded terms
-    reach ~1e6 while f must resolve ~1e-5 near the f <= 0 threshold, which
-    flips inclusion for pixels at a gaussian's center and can yield
-    alpha > 1.  Direct evaluation reproduces RenderGaussians.comp:117-124.);
-  * the sequential transmittance recurrence T *= (1-alpha) becomes a masked
-    *exclusive cumulative product* along the lane axis (log2 K shifted
-    multiplies) with a [P, 1] running-T carry across batches — the
-    multiplicative form keeps float behaviour close to the reference and
-    alpha == 1 collapses T to 0 exactly like the reference;
-  * early termination is the monotone-T mask T_excl >= 1e-4 (equivalence
-    argument in ops/blend.py), and whole remaining batches are skipped once
-    every pixel is below the stop threshold — the cooperative-batch
-    early-out of RenderGaussians.comp:111 at batch granularity;
-  * color accumulation sum_j w_j rgb_j is an MXU matmul
-    [4, K] x [K contracted with P-major w] -> [4, P] per batch.
+  * one program per 16x16 screen tile; its 256 pixels are the block's
+    lanes (two pixels per thread at ``num_warps=4``);
+  * a loop inside the program walks the tile's sorted ``[start, end)``
+    range from ``ranges`` in batches of ``batch`` elements;
+  * each element's features are fetched by its sorted gaussian index from
+    a per-gaussian feature table (no post-sort gather pass);
+  * front-to-back order per pixel: ``color += T * alpha * rgb`` then
+    ``T *= 1 - alpha``, for elements with ``f <= 0`` and
+    ``alpha >= alpha_cutoff``; a pixel stops after the element that takes
+    T below ``transmittance_stop``;
+  * the loop leaves once every pixel of the tile has stopped (checked once
+    per batch).
+
+The batch is unrolled in Python: the scalar loads of its elements do not
+depend on the transmittance recurrence, so the compiler can issue them
+ahead of the arithmetic.  All sums are float32 and elementwise; the kernel
+has no matrix product.
+
+The distributed depth-banded pipeline (parallel/dist.py) chains bands
+through the same kernel: `blend_strip_colors_kernel` blends a band from
+T = 1 and composes color_out = color_in + T_in * color_band and
+T_out = T_in * T_band outside the kernel.  A band pixel then stops at
+T_band < stop rather than at T_in * T_band < stop; what it adds past the
+exact stop is below T_in * T_band < transmittance_stop (1e-4) in total.
+
+Interpret mode (CPU) is for tests only: it is chosen on the CPU backend or
+by an explicit ``interpret=True``, never on a GPU (utils/device.py).
 """
 
 from __future__ import annotations
@@ -36,839 +39,257 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .common import interpret_mode
-
-from ...core.config import SENTINEL, RenderConfig
+from ...core.config import RenderConfig
+from ...utils import device
+from .. import blend as blend_ops
 from ..keygen import GaussianFrameData, SortElements
 
-# Elements per batch (the reference's ENTIRE_GROUP_SIZE=256 cooperative
-# batch, widened to fill VPU lanes).
-BATCH_K = 512
-# Batch start alignment.  DMA lane slices need 128-lane alignment; aligning
-# only to 128 (not BATCH_K) cuts the wasted leading lanes of each tile's
-# first batch from ~256 to ~64 on average — at 1080p (8160 tiles) that is
-# ~25% of all pair evaluations.
-ALIGN_K = 128
-NUM_FEATURES = 16  # feature rows: gx, gy, a, b, c, pad, r, g, b, galpha, pad*6
+# Elements per unrolled batch; the early-out is checked once per batch.
+BATCH = 16
+# 4 warps = 128 threads, two pixels of the 16x16 tile each: faster than
+# one pixel per thread on an H100 (PERF.md).
+NUM_WARPS = 4
+# Feature-table row: gx, gy, a', b', c', r, g, b, galpha, then padding to
+# 64 bytes so a row is two aligned 32-byte sectors.
+NUM_FEATURES = 16
+_GX, _GY, _A, _B, _C, _R, _G, _BL, _ALPHA = range(9)
 
 
-def pack_feature_table(frame: GaussianFrameData):
-    """Per-gaussian blend-feature rows [N, 10] f32.
+def feature_rows(screen_pos, color_alpha, cov_inv):
+    """Blend features as [N, NUM_FEATURES] f32 rows.
 
-    Columns [gx, gy, a', b', c', 0, r, g, b, galpha].  The covariance rows
-    are pre-scaled (a' = -a/2, b' = -b, c' = -c/2) so the kernel evaluates
-    f = a'dx^2 + b'dxdy + c'dy^2 directly; scaling by powers of two commutes
-    exactly through float rounding, so the result is bit-identical to the
-    GLSL form -0.5(a dx^2 + c dy^2) - b dx dy (RenderGaussians.comp:117-124).
-    Column-wise scales as one broadcast multiply (-b == -0.5*b*2 exactly;
-    .at[:, 1].multiply would lower to an XLA scatter, banned in the frame
-    path)."""
-    cov_scaled = frame.cov_inv * jnp.array([-0.5, -1.0, -0.5], jnp.float32)
-    table = jnp.concatenate(
-        [
-            frame.screen_pos,  # gx, gy
-            cov_scaled,  # a' = -a/2, b' = -b, c' = -c/2
-            jnp.zeros((frame.screen_pos.shape[0], 1), jnp.float32),
-            frame.color_alpha,  # r, g, b, galpha
-        ],
-        axis=-1,
-    )  # [N, 10]
-    # Force ONE materialized buffer: without the barrier XLA can fuse the
-    # concatenate into the downstream row-gather, turning it into a
-    # gather-per-source-operand (~2x the per-row cost at 6M rows, measured
-    # 2026-08-21: 126.7 ms real pipeline vs 65.6 ms materialized probe).
-    return jax.lax.optimization_barrier(table)
-
-
-def _pack16(x, y):
-    """Two f32 columns -> one f32-bitcast word holding (f16(x), f16(y))."""
-    xb = jax.lax.bitcast_convert_type(
-        x.astype(jnp.float16), jnp.uint16
-    ).astype(jnp.uint32)
-    yb = jax.lax.bitcast_convert_type(
-        y.astype(jnp.float16), jnp.uint16
-    ).astype(jnp.uint32)
-    return jax.lax.bitcast_convert_type(
-        xb | (yb << jnp.uint32(16)), jnp.float32
-    )
-
-
-def _unpack16(w):
-    """Inverse of `_pack16` on a [E] f32-bitcast word column -> (x, y) f32."""
-    packed = jax.lax.bitcast_convert_type(w, jnp.uint32)
-    lo = jax.lax.bitcast_convert_type(
-        (packed & jnp.uint32(0xFFFF)).astype(jnp.uint16), jnp.float16
-    ).astype(jnp.float32)
-    hi = jax.lax.bitcast_convert_type(
-        (packed >> jnp.uint32(16)).astype(jnp.uint16), jnp.float16
-    ).astype(jnp.float32)
-    return lo, hi
-
-
-def pack_feature_tables2(frame: GaussianFrameData):
-    """Per-gaussian blend features as TWO [N, 4] tables (narrow-gather
-    layout).
-
-    The in-pipeline XLA row-gather cost scales with row BYTES (~0.55 ns/B +
-    ~2 ns/row fixed, measured 2026-08-21: [N,4] 6.1 ns/row vs [N,10]
-    22 ns/row at 6.27M rows), so the capped path's dominant gather runs as
-    two width-4 gathers (2x38 = 76 ms) instead of one width-10 (139 ms).
-    Precision-critical quantities stay f32; the rgb color rides as two
-    f16-PAIR words (f16 relative error ~5e-4, inside the 2e-3 float image
-    contract, docs/TOLERANCES.md; color only enters the final w*rgb
-    accumulation).
-
-      table_a [N,4] f32: gx, gy, a' (=-a/2), b' (=-b)
-      table_b [N,4] f32: c' (=-c/2), galpha, pack16(r, g), pack16(b, b)
-
-    THE production capped-path transport (the r5 single width-6 table was
-    A/B'd and retired — 24 B rows sit past the >16 B width cliff in the
-    production split phase; see pack_feature_table6).
+    The inverse-covariance terms are pre-scaled (a' = -a/2, b' = -b,
+    c' = -c/2) so the kernel evaluates f = a'dx^2 + c'dy^2 + b'dxdy;
+    scaling by powers of two is exact, so f equals the GLSL form
+    -0.5(a dx^2 + c dy^2) - b dx dy (RenderGaussians.comp:117-124) up to
+    the compiler's choice of fused multiply-adds.
     """
-    n = frame.screen_pos.shape[0]
-    cov_scaled = frame.cov_inv * jnp.array([-0.5, -1.0, -0.5], jnp.float32)
-    table_a = jnp.concatenate(
-        [frame.screen_pos, cov_scaled[:, 0:2]], axis=-1
-    )
-
-    pack16 = _pack16
-    rg = pack16(frame.color_alpha[:, 0], frame.color_alpha[:, 1])
-    # The hi half is unused — but it must NOT be a constant zero: packing
-    # (b, zeros) compiles to an ALL-ZEROS word on the 2026-08 TPU server
-    # stack (blue channel silently lost, caught by the bench image check;
-    # scripts/r5_pack_probe2.py: word bits 0x0 at build while rg packs
-    # fine and the unpack is exact).  Duplicating b keeps both operands
-    # live data.
-    b0 = pack16(frame.color_alpha[:, 2], frame.color_alpha[:, 2])
-    table_b = jnp.concatenate(
-        [
-            cov_scaled[:, 2:3],
-            frame.color_alpha[:, 3:4],
-            rg[:, None],
-            b0[:, None],
-        ],
-        axis=-1,
-    )
-    return (
-        jax.lax.optimization_barrier(table_a),
-        jax.lax.optimization_barrier(table_b),
-    )
-
-
-def pack_feature_table6(frame: GaussianFrameData):
-    """Per-gaussian blend features as ONE [N, 6] table — RETIRED r5
-    experiment, kept as a tested utility.
-
-    The r4 width-probe curve priced a single w6 gather at ~43 ms, but that
-    probe consumed only [:8,:] of the output under the unreliable
-    dispatch-loop protocol; in the production split phase the w6 table
-    measured 139 vs 117 ms (24 B rows sit past the >16 B width cliff), so
-    the two width-4 tables (pack_feature_tables2) remain production.
-    Screen position stays f32 (an f16 ulp at x~1024 is a full pixel); the
-    inverse-covariance terms and opacity ride as f16 pairs — their error is
-    RELATIVE (~4.9e-4), so |df| <= |f|*4.9e-4 <= 5.6*4.9e-4 ~ 2.8e-3 over
-    the eligible range (alpha >= 1/255 => f >= ln(cutoff) = -5.54), i.e.
-    alpha is exact to ~0.3% relative — inside the float image contract
-    (docs/TOLERANCES.md, class 2/5); rgb was already f16 in r4.
-
-      col 0: gx f32          col 3: pack16(c' (=-c/2), galpha)
-      col 1: gy f32          col 4: pack16(r, g)
-      col 2: pack16(a' (=-a/2), b' (=-b))
-                             col 5: pack16(b, b)
-    """
-    n = frame.screen_pos.shape[0]
-    cov_scaled = frame.cov_inv * jnp.array([-0.5, -1.0, -0.5], jnp.float32)
-    table = jnp.concatenate(
-        [
-            frame.screen_pos,
-            _pack16(cov_scaled[:, 0], cov_scaled[:, 1])[:, None],
-            _pack16(cov_scaled[:, 2], frame.color_alpha[:, 3])[:, None],
-            _pack16(frame.color_alpha[:, 0], frame.color_alpha[:, 1])[:, None],
-            # hi half unused but must not be constant zero (the all-zeros
-            # word miscompile, see pack_feature_tables2)
-            _pack16(
-                frame.color_alpha[:, 2], frame.color_alpha[:, 2]
-            )[:, None],
-        ],
-        axis=-1,
-    )
-    # One materialized buffer (same rationale as pack_feature_table):
-    # without the barrier the row-gather fuses per source operand.
-    return jax.lax.optimization_barrier(table)
-
-
-def rows_from_table6(rows6):
-    """Reassemble the kernel's [E, 10] feature rows from the width-6 gather
-    (inverse of pack_feature_table6's packing)."""
-    ap, bp = _unpack16(rows6[:, 2])
-    cp, galpha = _unpack16(rows6[:, 3])
-    r, g = _unpack16(rows6[:, 4])
-    b, _ = _unpack16(rows6[:, 5])
-    zeros = jnp.zeros_like(ap)
-    return jnp.stack(
-        [
-            rows6[:, 0],  # gx
-            rows6[:, 1],  # gy
-            ap,
-            bp,
-            cp,
-            zeros,
-            r,
-            g,
-            b,
-            galpha,
-        ],
-        axis=-1,
-    )
-
-
-def rows_from_tables2(rows_a, rows_b):
-    """Reassemble the kernel's [E, 10] feature rows from the two narrow
-    gathers (inverse of pack_feature_tables2's packing)."""
-    r0, g0 = _unpack16(rows_b[:, 2])
-    b0, _ = _unpack16(rows_b[:, 3])
-    r = r0[:, None]
-    g = g0[:, None]
-    b = b0[:, None]
-    zeros = jnp.zeros_like(r)
+    n = screen_pos.shape[0]
+    cov_scaled = cov_inv * jnp.array([-0.5, -1.0, -0.5], jnp.float32)
     return jnp.concatenate(
         [
-            rows_a,  # gx, gy, a', b'
-            rows_b[:, 0:1],  # c'
-            zeros,
-            r,
-            g,
-            b,
-            rows_b[:, 1:2],  # galpha
+            screen_pos,
+            cov_scaled,
+            color_alpha,
+            jnp.zeros((n, NUM_FEATURES - 9), jnp.float32),
         ],
         axis=-1,
     )
 
 
-def features_from_rows(rows, live, batch_k: int):
-    """[E, 10] per-element rows -> [NUM_FEATURES, E_pad] feature-major array.
-
-    E is padded to a multiple of batch_k plus one slack batch so K-aligned
-    DMA slices stay in bounds.  `live` (or None) zeroes dead slots' galpha
-    via concatenate — a column .at[].multiply lowers to an XLA scatter,
-    banned in the frame path."""
-    if live is not None:
-        rows = jnp.concatenate(
-            [rows[:, :9], rows[:, 9:10] * live[:, None]], axis=1
-        )
-    feat = rows.T  # [10, E]
-    e = feat.shape[1]
-    pad = (-e) % batch_k + batch_k
-    feat = jnp.concatenate(
-        [
-            feat,
-            jnp.zeros((NUM_FEATURES - feat.shape[0], e), jnp.float32),
-        ],
-        axis=0,
-    )
-    return jnp.concatenate(
-        [feat, jnp.zeros((NUM_FEATURES, pad), jnp.float32)], axis=1
-    )
-
-
-def _build_features(
-    elements: SortElements,
-    frame: GaussianFrameData | None,
-    batch_k: int = BATCH_K,
-    features=None,
-):
-    """Per-element blend features in sorted order, feature-major.
-
-    Returns [NUM_FEATURES, E_pad] float32 with
-    rows [gx, gy, a, b, c, 0, r, g, b, galpha, 0...].
-
-    With `features` (pre-routed (screen_pos [E,2], color_alpha [E,4],
-    cov_inv [E,3]) from the distributed exchange), no gather happens and
-    `frame` may be None.
-    """
-    live = (elements.index != jnp.uint32(SENTINEL)).astype(jnp.float32)
-    if features is None:
-        idx = jnp.where(
-            elements.index == jnp.uint32(SENTINEL), jnp.uint32(0),
-            elements.index,
-        ).astype(jnp.int32)
-        # Pack per-gaussian features once [N, 10], gather once [E, 10] — one
-        # wide-row gather is far cheaper on TPU than several narrow ones.
-        # mode="clip" (idx is clamped in-bounds already): plain indexing
-        # lowers with fill semantics whose per-row OOB select is measurable
-        # at 14M rows.
-        rows = jnp.take(pack_feature_table(frame), idx, axis=0, mode="clip")
-    else:
-        screen_pos, color_alpha, cov_inv = features
-        cov_scaled = cov_inv * jnp.array([-0.5, -1.0, -0.5], jnp.float32)
-        rows = jnp.concatenate(
-            [
-                screen_pos,
-                cov_scaled,
-                jnp.zeros((screen_pos.shape[0], 1), jnp.float32),
-                color_alpha,
-            ],
-            axis=-1,
-        )  # [E, 10]
-    return features_from_rows(rows, live, batch_k)
-
-
-def _exclusive_cumprod_lanes(q):
-    """Exclusive cumulative product along axis 1 via log2(K) shifted
-    multiplies (identity pad).  q: [P, K]."""
-    k = q.shape[1]
-    ones = jnp.ones_like(q)
-    x = jnp.concatenate([ones[:, :1], q[:, :-1]], axis=1)  # shift right by 1
-    shift = 1
-    while shift < k:
-        shifted = jnp.concatenate([ones[:, :shift], x[:, :-shift]], axis=1)
-        x = x * shifted
-        shift *= 2
-    return x
-
-
-def _blend_tile_kernel(
-    starts_ref,
-    ends_ref,
-    origin_ref,  # [2] i32: (origin_y pixel row, tile_base global-id offset)
-    feat_hbm,
-    *rest,
+def _kernel(
+    start_ref,
+    end_ref,
+    meta_ref,  # [2] i32: (origin_y pixel row, tile_base global tile id)
+    index_ref,
+    feat_ref,
+    out_ref,
+    *,
     config: RenderConfig,
-    with_carry: bool = False,
+    batch: int,
+    by_index: bool,
 ):
-    if with_carry:
-        carry_ref, out_ref, feat_buf, dma_sem = rest
-    else:
-        out_ref, feat_buf, dma_sem = rest
-    tile = pl.program_id(0)
-    grid_w = config.grid_width
+    t = pl.program_id(0)
     ts = config.tile_size
     p = ts * ts
-    bk = config.blend_batch_k
+    stop = jnp.float32(config.transmittance_stop)
+    cutoff = jnp.float32(config.alpha_cutoff)
 
-    start = starts_ref[tile]
-    end = ends_ref[tile]
+    start = start_ref[t]
+    end = end_ref[t]
+    tile = t + meta_ref[1]
+    tile_x = tile % config.grid_width
+    tile_y = tile // config.grid_width
+    pix = jax.lax.broadcasted_iota(jnp.int32, (p,), 0)
+    # Pixel p = v * ts + u within the tile (the GLSL local index layout).
+    u = (tile_x * ts + pix % ts).astype(jnp.float32)
+    v = (meta_ref[0] + tile_y * ts + pix // ts).astype(jnp.float32)
 
-    # Absolute pixel coordinates of the tile's pixels as [P, 1] columns
-    # (p = v*ts + u, matching the GLSL local index layout).  The strip
-    # variant's tile ids are global: tile_base maps the grid index back.
-    tile_glob = tile + origin_ref[1]
-    tile_x = tile_glob % grid_w
-    tile_y = tile_glob // grid_w
-    pix = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-    u = (tile_x * ts + pix % ts).astype(jnp.float32)  # [P,1]
-    v = (origin_ref[0] + tile_y * ts + pix // ts).astype(jnp.float32)
-
-    lane = jax.lax.broadcasted_iota(jnp.int32, (1, bk), 1)
-
-    def dma(slot, k0):
-        k0a = pl.multiple_of(k0, ALIGN_K)
-        return pltpu.make_async_copy(
-            feat_hbm.at[:, pl.ds(k0a, bk)],
-            feat_buf.at[slot],
-            dma_sem.at[slot],
-        )
-
-    first_k0 = (start // ALIGN_K) * ALIGN_K  # lane-aligned first batch
-
-    # Double-buffered prefetch: batch i's DMA is issued while batch i-1
-    # computes (the TPU version of the reference's cooperative staging,
-    # RenderGaussians.comp:81-109).
-    @pl.when(first_k0 < end)
-    def _():
-        dma(0, first_k0).start()
+    zeros = jnp.zeros((p,), jnp.float32)
+    t0 = jnp.ones((p,), jnp.float32)
 
     def body(carry):
-        k0, slot, t_carry, color, _alive = carry
-        nk0 = k0 + bk
-
-        @pl.when(nk0 < end)
-        def _():
-            dma(1 - slot, nk0).start()
-
-        dma(slot, k0).wait()
-        buf = feat_buf[slot]
-
-        gx = buf[0:1, :]  # [1,K]
-        gy = buf[1:2, :]
-        a = buf[2:3, :]  # pre-scaled -a/2 (see _build_features)
-        b = buf[3:4, :]  # pre-scaled -b
-        c = buf[4:5, :]  # pre-scaled -c/2
-        # Fold the [start, end) range mask into galpha: out-of-range lanes
-        # get alpha = 0 (or NaN from garbage, which also fails the cutoff
-        # compare), removing one [P,K] AND from the eligibility chain.
-        in_range = (k0 + lane >= start) & (k0 + lane < end)  # [1,K]
-        galpha = jnp.where(in_range, buf[9:10, :], 0.0)
-
-        # Direct per-pair evaluation (RenderGaussians.comp:117-124):
-        # dx = gx - u, dy = v - gy (the evalX.y = -evalX.y flip).
-        dx = gx - u  # [P,K]
-        dy = v - gy
-        f = (a * dx * dx + c * dy * dy) + b * dx * dy
-        alpha = galpha * jnp.exp(f)
-
-        elig = (f <= 0.0) & (alpha >= jnp.float32(config.alpha_cutoff))
-
-        q = jnp.where(elig, 1.0 - alpha, 1.0)  # [P,K]
-        t_excl = t_carry * _exclusive_cumprod_lanes(q)
-        not_done = t_excl >= jnp.float32(config.transmittance_stop)
-        w = jnp.where(elig & not_done, t_excl * alpha, 0.0)  # [P,K]
-
-        rgba = buf[6:10, :]  # [4,K]
-        color = color + jax.lax.dot_general(
-            rgba,
-            w,
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )  # [4,P]
-
-        t_carry = t_excl[:, -1:] * q[:, -1:]  # [P,1]
-        alive = jnp.max(t_carry) >= jnp.float32(config.transmittance_stop)
-        return nk0, 1 - slot, t_carry, color, alive
-
-    def cond(carry):
-        k0, _slot, _t, _c, alive = carry
-        return (k0 < end) & alive
-
-    if with_carry:
-        t0 = carry_ref[0, 3:4, :].T  # [P,1] incoming transmittance
-        color0 = jnp.concatenate(
-            [carry_ref[0, 0:3, :], jnp.zeros((1, p), jnp.float32)], axis=0
-        )  # [4,P]
-        alive0 = jnp.max(t0) >= jnp.float32(config.transmittance_stop)
-    else:
-        t0 = jnp.ones((p, 1), jnp.float32)
-        color0 = jnp.zeros((4, p), jnp.float32)
-        alive0 = jnp.bool_(True)
-    init = (first_k0, jnp.int32(0), t0, color0, alive0)
-    k_end, slot_end, t_end, color, alive_end = jax.lax.while_loop(
-        cond, body, init
-    )
-
-    # Drain: if the loop exited early (all pixels saturated) while a prefetch
-    # for batch k_end is in flight, consume it so the scratch semaphore is
-    # clean for the next tile program.
-    @pl.when(jnp.logical_not(alive_end) & (k_end < end))
-    def _():
-        dma(slot_end, k_end).wait()
-
-    if with_carry:
-        # Rows 0-2: accumulated (unclipped) color; row 3: outgoing T.
-        out_ref[0, :, :] = jnp.concatenate([color[:3, :], t_end.T], axis=0)
-    else:
-        out_ref[0, :, :] = jnp.clip(color, 0.0, 1.0)
-
-
-# ---------------------------------------------------------------------------
-# Flat-scheduled variant: one grid step per BATCH (not per tile), with the
-# batch -> (tile, k0) schedule precomputed on device and fed through scalar
-# prefetch.  Eliminates per-tile program overhead, overlaps the feature DMA
-# across tile boundaries, and uses Pallas output-block revisiting (the output
-# index map repeats the same tile for consecutive batches, so the color
-# accumulator lives in the pipelined output block until the tile changes).
-# ---------------------------------------------------------------------------
-
-
-def _batch_capacity(config: RenderConfig, capacity: int) -> int:
-    """Static upper bound on live batches, PROVEN tight.
-
-    Per tile: nb_t = ceil((end_t - astart_t)/K) where astart aligns the
-    start down to ALIGN_K, so end - astart = r_t + lead_t with
-    lead_t < ALIGN_K.  ceil(x/K) < x/K + 1, hence
-    sum nb < (sum r + T*ALIGN_K)/K + T <= capacity/K + T*ALIGN_K/K + T.
-    The previous bound (capacity/K + 2T) over-counted by ~7K batches at
-    garden steady shapes — every one a DEAD grid step paying the
-    per-grid-step fixed cost (r5 probe quantifies it)."""
-    num_tiles = config.num_tiles
-    bk = config.blend_batch_k
-    return capacity // bk + num_tiles + (num_tiles * ALIGN_K) // bk + 2
-
-
-def _flat_schedule(ranges, config: RenderConfig, capacity: int):
-    """Per-frame batch schedule: tile_of_batch, k0_of_batch, counts."""
-    num_tiles = config.num_tiles
-    bk = config.blend_batch_k
-    b_cap = _batch_capacity(config, capacity)
-    starts = ranges[:, 0].astype(jnp.int32)
-    ends = ranges[:, 1].astype(jnp.int32)
-    astart = (starts // ALIGN_K) * ALIGN_K
-    nb = jnp.where(ends > starts, (ends - astart + bk - 1) // bk, 0)
-    cum_nb = jnp.cumsum(nb)
-    nb_total = cum_nb[-1]
-    first_batch = cum_nb - nb
-    b_idx = jnp.arange(b_cap, dtype=jnp.int32)
-    tile_of_batch = jnp.searchsorted(cum_nb, b_idx, side="right").astype(jnp.int32)
-    # Map dummy tail batches to the last real tile so no spurious output-block
-    # transition happens (see kernel notes).
-    has = nb > 0
-    last_real = jnp.max(jnp.where(has, jnp.arange(num_tiles, dtype=jnp.int32), -1))
-    last_real = jnp.maximum(last_real, 0)
-    tile_safe = jnp.where(b_idx < nb_total, tile_of_batch, last_real)
-    k0_of_batch = astart[tile_safe] + (b_idx - first_batch[tile_safe]) * bk
-    k0_of_batch = jnp.clip(k0_of_batch, 0, capacity)  # dummies: in-bounds DMA
-    is_first = (b_idx == first_batch[tile_safe]) & (b_idx < nb_total)
-    return tile_safe, k0_of_batch, is_first, nb_total, has
-
-
-def _blend_flat_kernel(
-    tile_ref,      # [B] i32 tile of batch
-    k0_ref,        # [B] i32 aligned element offset of batch
-    first_ref,     # [B] i32 (bool) first batch of its tile
-    nbt_ref,       # [1] i32 total live batches
-    starts_ref,    # [T] i32 range start per tile
-    ends_ref,      # [T] i32 range end per tile
-    origin_ref,    # [1] i32 strip pixel-row origin
-    feat_hbm,
-    out_ref,       # block [1, 4, P] revisited per tile
-    feat_buf,      # [2, F, K]
-    t_scr,         # [P, 1] transmittance carry (persists across grid steps)
-    dma_sem,
-    *,
-    config: RenderConfig,
-):
-    b = pl.program_id(0)
-    nbt = nbt_ref[0]
-    grid_w = config.grid_width
-    ts = config.tile_size
-    p = ts * ts
-    bk = config.blend_batch_k
-
-    slot = jax.lax.rem(b, 2)
-
-    @pl.when(b == 0)
-    def _():
-        # Warm the pipeline: start batch 0's DMA; zero the out block in case
-        # the whole frame is empty.
-        @pl.when(nbt > 0)
-        def _():
-            dma0 = pltpu.make_async_copy(
-                feat_hbm.at[:, pl.ds(pl.multiple_of(k0_ref[0], ALIGN_K), bk)],
-                feat_buf.at[0],
-                dma_sem.at[0],
-            )
-            dma0.start()
-
-        @pl.when(nbt == 0)
-        def _():
-            # Row 3 is the per-pixel outgoing transmittance: 1.0 untouched.
-            out_ref[0, :, :] = jnp.concatenate(
-                [jnp.zeros((3, p), jnp.float32), jnp.ones((1, p), jnp.float32)],
-                axis=0,
-            )
-
-    @pl.when(b < nbt)
-    def _():
-        tile = tile_ref[b]
-        start = starts_ref[tile]
-        end = ends_ref[tile]
-        k0 = k0_ref[b]
-
-        # Prefetch next batch while this one computes.
-        @pl.when(b + 1 < nbt)
-        def _():
-            nxt = pltpu.make_async_copy(
-                feat_hbm.at[:, pl.ds(pl.multiple_of(k0_ref[b + 1], ALIGN_K), bk)],
-                feat_buf.at[1 - slot],
-                dma_sem.at[1 - slot],
-            )
-            nxt.start()
-
-        cur = pltpu.make_async_copy(
-            feat_hbm.at[:, pl.ds(pl.multiple_of(k0, ALIGN_K), bk)],
-            feat_buf.at[slot],
-            dma_sem.at[slot],
-        )
-        cur.wait()
-
-        is_first = first_ref[b] != 0
-
-        # Saturation skip (the reference's per-pixel early-out,
-        # RenderGaussians.comp:136-142, at batch granularity): once every
-        # pixel's running transmittance is below the stop threshold, the
-        # batch contributes exactly 0 (w is masked by not_done) and T only
-        # decreases, so the entire compute can be skipped.  The first batch
-        # of a tile resets T and must always run.
-        saturated = jnp.max(t_scr[:, :]) < jnp.float32(config.transmittance_stop)
-
-        @pl.when(is_first | jnp.logical_not(saturated))
-        def _():
-            tile_x = tile % grid_w
-            tile_y = tile // grid_w
-            pix = jax.lax.broadcasted_iota(jnp.int32, (p, 1), 0)
-            u = (tile_x * ts + pix % ts).astype(jnp.float32)
-            v = (origin_ref[0] + tile_y * ts + pix // ts).astype(jnp.float32)
-            lane = jax.lax.broadcasted_iota(jnp.int32, (1, bk), 1)
-
-            buf = feat_buf[slot]
-            gx = buf[0:1, :]
-            gy = buf[1:2, :]
-            a = buf[2:3, :]  # pre-scaled -a/2
-            bb = buf[3:4, :]  # pre-scaled -b
-            c = buf[4:5, :]  # pre-scaled -c/2
-            in_range = (k0 + lane >= start) & (k0 + lane < end)
-            galpha = jnp.where(in_range, buf[9:10, :], 0.0)
-
+        k0, _alive, trans, r, g, b = carry
+        for k in range(batch):
+            slot = k0 + k
+            valid = slot < end
+            # Past the range end, re-read the last element (always a live
+            # slot) and zero its opacity: no masked loads needed.
+            pos = jnp.minimum(slot, end - 1)
+            gid = index_ref[pos] if by_index else pos
+            gx = feat_ref[gid, _GX]
+            gy = feat_ref[gid, _GY]
+            fa = feat_ref[gid, _A]
+            fb = feat_ref[gid, _B]
+            fc = feat_ref[gid, _C]
+            galpha = jnp.where(valid, feat_ref[gid, _ALPHA], 0.0)
+            # evalX = gScreenPos - pixel; evalX.y = -evalX.y
+            # (RenderGaussians.comp:117).
             dx = gx - u
             dy = v - gy
-            f = (a * dx * dx + c * dy * dy) + bb * dx * dy
+            f = (fa * dx * dx + fc * dy * dy) + fb * dx * dy
             alpha = galpha * jnp.exp(f)
+            take = (f <= 0.0) & (alpha >= cutoff) & (trans >= stop)
+            w = jnp.where(take, trans * alpha, 0.0)
+            r = r + w * feat_ref[gid, _R]
+            g = g + w * feat_ref[gid, _G]
+            b = b + w * feat_ref[gid, _BL]
+            trans = jnp.where(take, trans * (1.0 - alpha), trans)
+        alive = jnp.max(trans) >= stop
+        return k0 + batch, alive, trans, r, g, b
 
-            elig = (f <= 0.0) & (alpha >= jnp.float32(config.alpha_cutoff))
+    def cond(carry):
+        k0, alive = carry[0], carry[1]
+        return (k0 < end) & alive
 
-            t_carry = jnp.where(is_first, jnp.float32(1.0), t_scr[:, :])  # [P,1]
-            q = jnp.where(elig, 1.0 - alpha, 1.0)
-            t_excl = t_carry * _exclusive_cumprod_lanes(q)
-            not_done = t_excl >= jnp.float32(config.transmittance_stop)
-            w = jnp.where(elig & not_done, t_excl * alpha, 0.0)
-
-            rgba = buf[6:10, :]
-            contrib = jax.lax.dot_general(
-                rgba,
-                w,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # [4,P]
-            prev3 = jnp.where(
-                is_first, jnp.zeros((3, p), jnp.float32), out_ref[0, 0:3, :]
-            )
-            t_new = t_excl[:, -1:] * q[:, -1:]  # [P,1]
-            # Row 3 carries the running per-pixel transmittance out of the
-            # kernel — the saturation-truncation path's validity signal
-            # (exactness: a tile capped at C elements is exact iff all its
-            # pixels have T < stop at the cap, since T is monotone).
-            out_ref[0, :, :] = jnp.concatenate(
-                [prev3 + contrib[0:3, :], t_new.T], axis=0
-            )
-            t_scr[:, :] = t_new
+    alive0 = jnp.max(t0) >= stop
+    _, _, trans, r, g, b = jax.lax.while_loop(
+        cond, body, (start, alive0, t0, zeros, zeros, zeros)
+    )
+    out_ref[0, :] = r
+    out_ref[1, :] = g
+    out_ref[2, :] = b
+    out_ref[3, :] = trans
 
 
-def blend_flat_core(
-    feat,
+def _whole(shape):
+    return pl.BlockSpec(shape, lambda t: (0,) * len(shape))
+
+
+def _tile_block(p):
+    return pl.BlockSpec((None, 4, p), lambda t: (t, 0, 0))
+
+
+def blend_tile_rows(
+    index,
+    table,
     ranges,
     config: RenderConfig,
-    capacity: int,
-    origin_y: int | jax.Array = 0,
     *,
-    cap: int = 0,
-    with_t: bool = False,
-):
-    """Flat-scheduled blend over a prebuilt [NUM_FEATURES, E_pad] feature
-    array; returns float32 [H, W, 3] (and [num_tiles, P] transmittance with
-    with_t).  `capacity` is the schedule's element capacity (feat's unpadded
-    length).  The capped-gather path calls this directly with its packed
-    feature layout and packed ranges."""
-    bk = config.blend_batch_k
-    assert bk % ALIGN_K == 0, "blend_batch_k must be a multiple of 128"
-    if cap:
-        ranges = jnp.stack(
-            [
-                ranges[:, 0],
-                jnp.minimum(
-                    ranges[:, 1], ranges[:, 0] + ranges.dtype.type(cap)
-                ),
-            ],
-            axis=1,
-        )
-    tile_of_batch, k0_of_batch, is_first, nb_total, has = _flat_schedule(
-        ranges, config, capacity
-    )
-    starts = ranges[:, 0].astype(jnp.int32)
-    ends = ranges[:, 1].astype(jnp.int32)
-    origin = jnp.asarray(origin_y, jnp.int32).reshape(1)
-    num_tiles = config.num_tiles
-    p = config.tile_size * config.tile_size
-    # Grid length MUST equal the schedule arrays' length: a larger grid
-    # makes the output index map read tile_of_batch out of bounds (the
-    # exact bug shipped in the r4 batch-capacity tightening — the schedule
-    # shrank while this stayed on the old formula).
-    b_cap = _batch_capacity(config, capacity)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=7,
-        grid=(b_cap,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec(
-            (1, 4, p),
-            lambda b, tile_r, *_: (tile_r[b], 0, 0),
-            memory_space=pltpu.VMEM,
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, NUM_FEATURES, bk), jnp.float32),
-            pltpu.VMEM((p, 1), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-    )
-    tile_colors = pl.pallas_call(
-        functools.partial(_blend_flat_kernel, config=config),
-        out_shape=jax.ShapeDtypeStruct((num_tiles, 4, p), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret_mode(),
-    )(
-        tile_of_batch,
-        k0_of_batch,
-        is_first.astype(jnp.int32),
-        nb_total.reshape(1).astype(jnp.int32),
-        starts,
-        ends,
-        origin,
-        feat,
-    )
-    # Tiles with no batches are never visited by the grid: zero the colors
-    # (their transmittance row reads as "untouched": T = 1).
-    rgb = jnp.where(has[:, None, None], tile_colors[:, :3, :], 0.0)
-
-    gh, gw, ts = config.grid_height, config.grid_width, config.tile_size
-    img = jnp.clip(rgb, 0.0, 1.0).reshape(gh, gw, 3, ts, ts)
-    img = img.transpose(0, 3, 1, 4, 2).reshape(gh * ts, gw * ts, 3)
-    img = img[: config.height, : config.width]
-    if with_t:
-        t_out = jnp.where(has[:, None], tile_colors[:, 3, :], 1.0)
-        return img, t_out
-    return img
-
-
-@functools.partial(
-    jax.jit, static_argnames=("config", "cap", "with_t")
-)
-def blend_tiles_pallas_flat(
-    elements: SortElements,
-    ranges,
-    frame: GaussianFrameData,
-    config: RenderConfig,
+    num_tiles: int | None = None,
+    tile_base: int | jax.Array = 0,
     origin_y: int | jax.Array = 0,
-    *,
-    cap: int = 0,
-    with_t: bool = False,
+    by_index: bool = True,
+    batch: int = BATCH,
+    interpret: bool | None = None,
 ):
-    """Flat-scheduled blend; returns float32 [H, W, 3].
+    """Run the kernel over tiles [tile_base, tile_base + num_tiles).
 
-    cap > 0: truncate every tile's range to its first `cap` sorted elements
-    (the saturation-truncation schedule).  with_t: also return the per-tile
-    per-pixel outgoing transmittance [num_tiles, P] — `cap` is exact for a
-    tile iff its range fits the cap or max-over-pixels T < stop there.
+    Args:
+      index: [E] sorted gaussian index per element (32-bit integers);
+        ignored when ``by_index`` is False (then element e reads row e).
+      table: [N, NUM_FEATURES] f32 feature rows (``feature_rows``).
+      ranges: [num_tiles, 2] (start, end) element ranges of these tiles.
+    Returns [num_tiles, 4, P] f32: unclipped r, g, b and the final T.
     """
-    capacity = elements.tile.shape[0]
-    feat = _build_features(elements, frame, config.blend_batch_k)
-    return blend_flat_core(
-        feat, ranges, config, capacity, origin_y, cap=cap, with_t=with_t
+    if interpret is None:
+        interpret = device.kernel_interpret()
+    t_s = config.num_tiles if num_tiles is None else num_tiles
+    p = config.tile_size * config.tile_size
+    starts = ranges[:, 0].astype(jnp.int32)
+    ends = ranges[:, 1].astype(jnp.int32)
+    meta = jnp.stack(
+        [jnp.asarray(origin_y, jnp.int32), jnp.asarray(tile_base, jnp.int32)]
     )
+    args = [starts, ends, meta, index.astype(jnp.int32), table]
+    return pl.pallas_call(
+        functools.partial(
+            _kernel,
+            config=config,
+            batch=batch,
+            by_index=by_index,
+        ),
+        out_shape=jax.ShapeDtypeStruct((t_s, 4, p), jnp.float32),
+        grid=(t_s,),
+        in_specs=[_whole(a.shape) for a in args],
+        out_specs=_tile_block(p),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name="tile_blend",
+    )(*args)
 
 
-@functools.partial(jax.jit, static_argnames=("config",))
-def blend_tiles_pallas(
+@functools.partial(jax.jit, static_argnames=("config", "batch", "interpret"))
+def blend_tiles_kernel(
     elements: SortElements,
     ranges,
     frame: GaussianFrameData,
     config: RenderConfig,
     origin_y: int | jax.Array = 0,
+    *,
+    batch: int = BATCH,
+    interpret: bool | None = None,
 ):
-    """Blend all tiles; returns float32 [H, W, 3] (pre-quantization).
-
-    `origin_y`: absolute pixel row of this image's first row (sharded strips,
-    see parallel/dist.py)."""
-    bk = config.blend_batch_k
-    assert bk % ALIGN_K == 0, "blend_batch_k must be a multiple of 128"
-    feat = _build_features(elements, frame, bk)
-    starts = ranges[:, 0].astype(jnp.int32)
-    ends = ranges[:, 1].astype(jnp.int32)
-    origin = jnp.stack(
-        [jnp.asarray(origin_y, jnp.int32), jnp.int32(0)]
-    )  # (origin_y, tile_base)
-    num_tiles = config.num_tiles
-    p = config.tile_size * config.tile_size
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(num_tiles,),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec(
-            (1, 4, p), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, NUM_FEATURES, bk), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+    """Blend every tile; returns the float32 [H, W, 3] image
+    (pre-quantization), the kernel counterpart of ``blend_tiles_xla``."""
+    table = feature_rows(frame.screen_pos, frame.color_alpha, frame.cov_inv)
+    out = blend_tile_rows(
+        elements.index,
+        table,
+        ranges,
+        config,
+        origin_y=origin_y,
+        batch=batch,
+        interpret=interpret,
     )
-    tile_colors = pl.pallas_call(
-        functools.partial(_blend_tile_kernel, config=config),
-        out_shape=jax.ShapeDtypeStruct((num_tiles, 4, p), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret_mode(),
-    )(starts, ends, origin, feat)
-
-    gh, gw, ts = config.grid_height, config.grid_width, config.tile_size
-    img = tile_colors[:, :3, :].reshape(gh, gw, 3, ts, ts)
-    img = img.transpose(0, 3, 1, 4, 2).reshape(gh * ts, gw * ts, 3)
-    return img[: config.height, : config.width]
+    return blend_ops.assemble_tile_colors(
+        out[:, :3, :].transpose(0, 2, 1), config
+    )
 
 
-@functools.partial(jax.jit, static_argnames=("config",))
-def blend_strip_colors_pallas(
+def blend_strip_colors_kernel(
     elements: SortElements,
     ranges,
     frame: GaussianFrameData | None,
     config: RenderConfig,
-    tile_base,
-    carry_color,
-    carry_logt,
+    *,
+    tile_base: int | jax.Array = 0,
+    num_strip_tiles: int | None = None,
+    carry_color=None,
+    carry_logt=None,
     features=None,
+    interpret: bool | None = None,
 ):
-    """Carry-aware strip blend (Pallas tier) — the distributed depth-banded
-    pipeline's per-phase primitive (parallel/dist.py).
+    """Carry-aware strip blend with the same contract as
+    ``ops.blend.blend_strip_colors_xla``.
 
-    `config` is the STRIP config (num_tiles = strip length); `ranges` is the
-    GLOBAL [T_total, 2] table, sliced here at `tile_base`; element tile ids
-    are global.  Carries enter/leave in the same (color [T_s, P, 3],
-    logT [T_s, P]) format as blend_strip_colors_xla; the kernel chains T
-    multiplicatively (exp at entry, log at exit).
+    ``ranges`` is the GLOBAL [T_total, 2] table (sliced here at
+    ``tile_base``); element tile ids are global.  ``features``, when given,
+    is the pre-routed per-element (screen_pos [E,2], color_alpha [E,4],
+    cov_inv [E,3]) of the distributed exchange, read by element slot.
 
     Returns (colors [T_s, P, 3] unclipped, logt_end [T_s, P]).
     """
-    num_tiles = config.num_tiles  # strip length
-    p = config.tile_size * config.tile_size
-    bk = config.blend_batch_k
-    assert bk % ALIGN_K == 0, "blend_batch_k must be a multiple of 128"
-    feat = _build_features(elements, frame, bk, features=features)
-    tile_base = jnp.asarray(tile_base, jnp.int32)
-    strip_ranges = jax.lax.dynamic_slice_in_dim(ranges, tile_base, num_tiles, 0)
-    starts = strip_ranges[:, 0].astype(jnp.int32)
-    ends = strip_ranges[:, 1].astype(jnp.int32)
-    origin = jnp.stack([jnp.int32(0), tile_base])
-
-    carry = jnp.concatenate(
-        [
-            carry_color.transpose(0, 2, 1),  # [T_s, 3, P]
-            jnp.exp(carry_logt)[:, None, :],  # [T_s, 1, P]
-        ],
-        axis=1,
-    )  # [T_s, 4, P]
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=3,
-        grid=(num_tiles,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(
-                (1, 4, p), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, 4, p), lambda i, *_: (i, 0, 0), memory_space=pltpu.VMEM
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((2, NUM_FEATURES, bk), jnp.float32),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
+    t_s = config.num_tiles if num_strip_tiles is None else num_strip_tiles
+    if features is None:
+        table = feature_rows(frame.screen_pos, frame.color_alpha, frame.cov_inv)
+        by_index = True
+    else:
+        table = feature_rows(*features)
+        by_index = False
+    strip_ranges = jax.lax.dynamic_slice_in_dim(
+        ranges, jnp.asarray(tile_base, jnp.int32), t_s, 0
     )
-    out = pl.pallas_call(
-        functools.partial(_blend_tile_kernel, config=config, with_carry=True),
-        out_shape=jax.ShapeDtypeStruct((num_tiles, 4, p), jnp.float32),
-        grid_spec=grid_spec,
-        interpret=interpret_mode(),
-    )(starts, ends, origin, feat, carry)
-
-    colors = out[:, :3, :].transpose(0, 2, 1)  # [T_s, P, 3]
-    logt_end = jnp.log(out[:, 3, :])  # -inf for fully saturated pixels: fine
-    return colors, logt_end
+    out = blend_tile_rows(
+        elements.index,
+        table,
+        strip_ranges,
+        config,
+        num_tiles=t_s,
+        tile_base=tile_base,
+        by_index=by_index,
+        interpret=interpret,
+    )
+    local = out[:, :3, :].transpose(0, 2, 1)  # [T_s, P, 3]
+    # log(0) = -inf for a fully stopped pixel: a later band then adds
+    # nothing, as the sequential recurrence would.
+    logt = jnp.log(out[:, 3, :])
+    if carry_logt is not None:
+        local = jnp.exp(carry_logt)[:, :, None] * local
+        logt = carry_logt + logt
+    if carry_color is not None:
+        local = carry_color + local
+    return local, logt

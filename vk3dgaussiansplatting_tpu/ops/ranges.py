@@ -1,10 +1,8 @@
 """Per-tile range extraction — the FindRanges pass.
 
 The reference kernel (FindRanges.comp) runs one thread per sorted element and
-scatter-writes segment boundaries where neighbouring tile keys differ.  XLA
-TPU lowers scatter pathologically (~35 ms per scatter at 8M elements,
-measured), so the TPU-native formulation inverts it: the sorted tile array is
-*binary-searched per tile* — `start[t] = searchsorted(tiles, t, left)`,
+scatter-writes segment boundaries where neighbouring tile keys differ.  This
+formulation inverts it: the sorted tile array is *searched per tile* — `start[t] = searchsorted(tiles, t, left)`,
 `end[t] = searchsorted(tiles, t, right)` — num_tiles probes of log2(E) steps,
 microseconds of work, no scatter.
 

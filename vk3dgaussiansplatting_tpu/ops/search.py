@@ -15,8 +15,7 @@ admits a constant-depth formulation instead:
 
 Five fused ops total, ~0.5-1 ms at garden scale.  Exact by construction.
 
-Shared by ops/ranges.py (FindRanges) and ops/pallas/expand_kernel.py (the
-per-window source-row probes of the InitSortList expansion).
+Used by ops/ranges.py (FindRanges).
 """
 
 from __future__ import annotations
@@ -36,7 +35,7 @@ def two_level_left_search(arr, probes):
     strictly below the dtype maximum: probing the max (e.g. the 0xFFFFFFFF
     sentinel as uint32) wraps `probes + 1` to 0 and silently returns
     position 0 instead of the array end.  Callers deriving probes from data
-    must clamp or saturate before applying the +1 recipe (advisor r3).
+    must clamp or saturate before applying the +1 recipe.
     """
     e = arr.shape[0]
     nc = -(-e // CHUNK)
@@ -58,55 +57,5 @@ def two_level_left_search(arr, probes):
     within = jnp.sum(
         (rows < probes[:, None]).astype(jnp.int32), axis=1
     )  # [P]
-    pos = cstar * CHUNK + jnp.where(cstar >= nc, 0, within)
-    return jnp.minimum(pos, e).astype(jnp.int32)
-
-
-def two_level_lex_search(hi, lo, probe_hi, probe_lo):
-    """Constant-depth left search on LEXICOGRAPHIC (hi, lo) key pairs.
-
-    Returns, per probe p, #{i : (hi_i, lo_i) < (probe_hi_p, probe_lo_p)}
-    — i.e. searchsorted-left over the 64-bit composite key hi<<32|lo that
-    TPUs cannot form natively.  Requires (hi, lo) sorted lexicographically
-    (the global sort-element order: tile-major, then depth).  Same
-    two-level structure and cost class as two_level_left_search, with one
-    extra compare per element.
-
-    hi/lo:           [N] uint32, lex-sorted.
-    probe_hi/lo:     [P] uint32.
-    Returns [P] int32 positions.
-    """
-    e = hi.shape[0]
-    nc = -(-e // CHUNK)
-    pad = nc * CHUNK - e
-    maxval = jnp.asarray(jnp.iinfo(hi.dtype).max, hi.dtype)
-    hi_pad = jnp.concatenate([hi, jnp.full((pad,), maxval, hi.dtype)])
-    lo_pad = jnp.concatenate([lo, jnp.full((pad,), maxval, lo.dtype)])
-    mat_h = hi_pad.reshape(nc, CHUNK)
-    mat_l = lo_pad.reshape(nc, CHUNK)
-    lasts_h = mat_h[:, -1]
-    lasts_l = mat_l[:, -1]
-
-    def lex_lt(ah, al, bh, bl):
-        return (ah < bh) | ((ah == bh) & (al < bl))
-
-    # coarse: first chunk whose last pair is not below the probe pair
-    cstar = jnp.sum(
-        lex_lt(
-            lasts_h[:, None], lasts_l[:, None],
-            probe_hi[None, :], probe_lo[None, :],
-        ).astype(jnp.int32),
-        axis=0,
-    )  # [P] in [0, nc]
-    # fine: count within the covering chunk
-    sel = jnp.minimum(cstar, nc - 1)
-    rows_h = jnp.take(mat_h, sel, axis=0)  # [P, CHUNK]
-    rows_l = jnp.take(mat_l, sel, axis=0)
-    within = jnp.sum(
-        lex_lt(rows_h, rows_l, probe_hi[:, None], probe_lo[:, None]).astype(
-            jnp.int32
-        ),
-        axis=1,
-    )
     pos = cstar * CHUNK + jnp.where(cstar >= nc, 0, within)
     return jnp.minimum(pos, e).astype(jnp.int32)

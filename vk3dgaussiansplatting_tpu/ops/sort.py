@@ -1,25 +1,21 @@
-"""Sort-element ordering — the reference's GPU sort subsystem, TPU-native.
+"""Sort-element ordering — the reference's GPU sort subsystem.
 
 The reference sorts {tileKey, depthKey, gaussianIdx} triples by the 64-bit key
 (tileKey << 32) | depthKey with a FidelityFX-style 4-bit LSD radix sort
 (Engine/Graphics/Sort/RadixSort.cpp) or a bitonic merge sort
 (BitonicMergeSort.cpp), selected by `GPU_SORT_ALGORITHM` (Renderer.h:33).
 
-TPUs have no native u64, so the key is kept as its two u32 words throughout
+JAX has no u64 without x64 mode, so the key is kept as its two u32 words
 (the reference's own shaders also handle it word-split,
 RadixSortCount.comp:60-73).  Two tiers:
 
   * XLA_SORT — `jax.lax.sort` with the u16-tile / 3-key-unstable tricks
     (sort_elements_xla below) — the production tier on every backend, and
-    the role-equivalent of the reference's RadixSort.  A Pallas LSD radix
+    the role-equivalent of the reference's RadixSort.  Whether an LSD radix
     over the used key bits (`radixSortNumSortBits = roundUp4(32 +
-    minNumBits(numTiles-1))`, RadixSort.cpp:203-204) was designed and
-    COSTED OUT on the v5e probe table: per-run scatter stores are
-    DMA-issue-bound (~600 ns each), in-VMEM permutes crossbar-bound
-    (85 ns / [8,128]), merge/bucket alternatives bottom out at the same
-    element-granular permutation floor lax.sort already sits on
-    (~3 ns/element).  The full design-space table is in
-    docs/PERFORMANCE.md; revisit if Mosaic grows faster lane permutes.
+    minNumBits(numTiles-1))`, RadixSort.cpp:203-204) beats it on the GPU
+    is open (ROADMAP S2).
+  * BITONIC — the reference's alternative backend (ops/bitonic.py).
 
 Sentinel slots (0xFFFFFFFF everywhere) sort to the end, exactly like the
 reference's cleared-buffer padding (Subrenderer.cpp:42-46).
@@ -39,17 +35,15 @@ def sort_elements_xla(
 ) -> SortElements:
     """Lexicographic sort by (tile, depth) via XLA's sort HLO, order-stable.
 
-    Two cost tricks, both order-preserving (probed on v5e, 2026-08-21,
-    scripts/r2_sortvariants_probe.py — numbers in docs/PERFORMANCE.md):
+    Two tricks that move fewer bytes, both order-preserving (their cost on
+    the GPU is open, ROADMAP S2):
 
     * When the tile-id range provably fits in 16 bits (every benchmark
-      resolution: 8160 tiles at 1080p), the tile key is sorted as uint16 —
-      XLA's TPU sort cost is ~bytes-proportional (u16 keys: 55.5 ms vs u32
-      59.5 ms at 14.19M).  Live tiles are < 0xFFFF and the 0xFFFFFFFF
-      sentinel maps to 0xFFFF, still the maximum.
+      resolution: 8160 tiles at 1080p), the tile key is sorted as uint16.
+      Live tiles are < 0xFFFF and the 0xFFFFFFFF sentinel maps to 0xFFFF,
+      still the maximum.
     * The index column is promoted from payload to a THIRD sort key with
-      `is_stable=False` (44.3 ms vs 55.5 ms stable at 14.19M).  The result
-      is deterministically identical to the stable 2-key sort: within an
+      `is_stable=False`.  The result is deterministically identical to the stable 2-key sort: within an
       equal (tile, depth) pair the gaussian ids are distinct (a gaussian
       emits at most one element per tile) and ascend with keygen slot
       order, so ordering ties by the id column reproduces stability; the

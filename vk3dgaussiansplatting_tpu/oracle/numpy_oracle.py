@@ -17,7 +17,8 @@ key, the blended output is identical for any allocation order when no
 even when they do.
 
 Tolerance story (see also ops/blend.py): the oracle blend is the sequential
-recurrence; the TPU tiers use the log-space product.  Integer outputs (keys,
+recurrence, as is the GPU tile-blend kernel; the XLA tier uses the
+log-space product.  Integer outputs (keys,
 sorted order, ranges) must match exactly; float images to ~1e-3 absolute,
 quantized images to +-1 8-bit step.
 """

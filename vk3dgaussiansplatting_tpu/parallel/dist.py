@@ -164,8 +164,7 @@ def _bucket_by_destination(cols, dest, ndev: int, slab: int):
     destination device, preserving input order within each slab.
 
     `cols`: list of [E] uint32 columns (keys first; routed feature words may
-    follow, bitcast to u32).  Scatter-free (CLAUDE.md: XLA scatter is
-    pathological on this stack): one stable multi-operand sort keyed by
+    follow, bitcast to u32).  Scatter-free: one stable multi-operand sort keyed by
     destination groups the elements, `searchsorted` locates each
     destination's run, and ONE packed row gather materializes the slabs.  A
     run longer than `slab` drops its tail, mirroring the reference's
@@ -259,7 +258,7 @@ def make_distributed_render(
             # Per-element blend features from the LOCAL frame table (indices
             # are still local here); they ride the exchange bitcast to u32,
             # replacing the O(N_total) frame-data all_gather with O(E/ndev)
-            # routed rows (VERDICT r1 weak #5).
+            # routed rows.
             sp_l, ca_l, ci_l = blend_ops.gather_element_features(
                 elements, frame
             )
@@ -396,12 +395,13 @@ def make_distributed_render(
             if use_pallas_blend:
                 from ..ops.pallas import blend_kernel
 
-                colors, logt = blend_kernel.blend_strip_colors_pallas(
+                colors, logt = blend_kernel.blend_strip_colors_kernel(
                     el_s,
                     rng_s,
                     frame_all,
-                    strip_config,
+                    config,
                     tile_base=tile_base,
+                    num_strip_tiles=tiles_per_dev,
                     carry_color=cc,
                     carry_logt=cl,
                     features=feat_s,
@@ -441,9 +441,8 @@ def make_distributed_render(
             )
             return strip, acct.reshape(1, 4)
         # Default path surfaces the strip-window overflow count: dropped
-        # elements silently degrade the image (advisor r3 medium), so the
-        # count rides out with every frame instead of hiding behind
-        # return_stats.
+        # elements silently degrade the image, so the count rides out with
+        # every frame instead of hiding behind return_stats.
         return strip, dropped.astype(jnp.int32).reshape(1)
 
     table_spec = GaussianTable(
@@ -460,8 +459,8 @@ def make_distributed_render(
         in_specs=(table_spec, P(), P(), P()),
         out_specs=out_specs,
         # pallas_call's out_shape carries no varying-mesh-axes annotation;
-        # without this the pallas expand/blend tiers cannot trace under
-        # shard_map (jax >= 0.7 check_vma default).
+        # without this the tile-blend kernel cannot trace under shard_map
+        # (jax >= 0.7 check_vma default).
         check_vma=False,
     )
     return jax.jit(fn)

@@ -1,7 +1,7 @@
 """Device mesh management for multi-chip / multi-host rendering.
 
 The reference is strictly single-GPU (SURVEY.md §2.4): its only
-"communication" is Vulkan pipeline barriers.  The TPU framework introduces a
+"communication" is Vulkan pipeline barriers.  This framework introduces a
 distributed layer with no reference counterpart: a 1-D `jax.sharding.Mesh`
 over all devices ("shard" axis), gaussians data-sharded across it, screen
 tiles row-partitioned across it, and the per-frame global sort realized as a

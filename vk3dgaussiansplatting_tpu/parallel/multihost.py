@@ -16,8 +16,8 @@ import jax
 
 
 def initialize(coordinator_address: str | None = None, **kwargs) -> None:
-    """jax.distributed.initialize with env-based defaults (TPU pods
-    auto-discover; GPU/CPU clusters pass coordinator_address etc.)."""
+    """jax.distributed.initialize; GPU and CPU clusters pass
+    coordinator_address, num_processes and process_id."""
     jax.distributed.initialize(coordinator_address=coordinator_address, **kwargs)
 
 

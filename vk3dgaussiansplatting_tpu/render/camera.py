@@ -8,7 +8,7 @@ the reference), and the WASDQE/mouse fly controls (Camera.cpp:107-131) exposed
 as a headless API (`move`, `rotate`, `update`) instead of GLFW polling.
 
 Matrices are built in float32 on the host (numpy); they are tiny per-frame
-uniforms, the TPU equivalent of the camera UBO (ShaderStructs.h:37-41).
+uniforms, the equivalent of the camera UBO (ShaderStructs.h:37-41).
 """
 
 from __future__ import annotations

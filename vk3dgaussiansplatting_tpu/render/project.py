@@ -1,9 +1,9 @@
 """Per-gaussian projection math, vectorized over the whole table.
 
-TPU-native re-derivation of the reference's GLSL math (Common.glsl +
+Re-derivation of the reference's GLSL math (Common.glsl +
 InitSortList.comp): instead of one thread per gaussian, every function here is
 a pure `jax.numpy` map over `[N]` arrays that XLA fuses into a handful of
-VPU-resident loops.  All math is float32, matching the GLSL precision.
+elementwise loops.  All math is float32, matching the GLSL precision.
 
 Faithfulness notes:
   * `quat_rot_matrix` reproduces getRotMat (Common.glsl:17-30) including its
@@ -13,8 +13,8 @@ Faithfulness notes:
   * The EWA projection (Common.glsl:32-78) is restructured: instead of forming
     J·W·Sigma·W^T·J^T as 3x3 matmuls per gaussian, we build A = W·R·S (one
     [N,3,3] batch) and contract the two non-zero Jacobian rows against it —
-    the 2x2 output covariance comes out as three dot products.  This avoids
-    tiny-matmul MXU padding waste and keeps everything on the VPU.
+    the 2x2 output covariance comes out as three dot products, all
+    elementwise (no tiny matrix products).
   * View-space xy is clamped to +-tanFov*IN_VIEW_LIMIT before the Jacobian
     (Common.glsl:58-63) and cov.x/cov.z are dilated by +0.3 (Common.glsl:73-75).
 """

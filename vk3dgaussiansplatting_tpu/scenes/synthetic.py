@@ -74,7 +74,7 @@ def test_sort_table(seed: int = 1) -> GaussianTable:
 
 
 # Opacity distributions for the procedural benchmark cloud, selectable so
-# cross-round benchmark numbers stay comparable (advisor finding, round 2):
+# benchmark numbers stay comparable across opacity models:
 #   capture     — sigmoid(N(2.5, 1.5)), bimodal with most mass near 1 like
 #                 trained 3DGS captures (median ~0.92); the round-2+ default.
 #   translucent — sigmoid(N(1.0, 2.0)), the round-1 uniform translucent
@@ -141,15 +141,12 @@ def procedural_cloud_table(
     sh[:, 1:, :] = rng.normal(0.0, sh_rest_std, size=(n, NUM_SH_COEFFS - 1, 3))
 
     # Scramble the table order (seeded, once, host-side).  Gaussian index
-    # order is semantically free, but it sets the post-sort feature
-    # gather's index pattern: within a tile, elements are depth-ordered,
-    # and any index<->depth correlation (the cluster/spread construction
-    # above; Morton order on real captures) makes the gather's indices
-    # partially SORTED — which XLA's TPU gather runs ~2x slower than
-    # decorrelated indices (31 vs 11.5 ns/row fully sorted vs random,
-    # scripts/r3_gather_probe2.py 2026-08-21).  The reference Morton-sorts
-    # for GPU cache coherency (ResourceManager.cpp:283-297); the TPU-first
-    # choice is the opposite.
+    # order is semantically free, but it sets the blend's feature-fetch
+    # index pattern and decorrelates index from depth (the cluster/spread
+    # construction above would otherwise leave it partially sorted).  The
+    # reference Morton-sorts instead, for cache coherency
+    # (ResourceManager.cpp:283-297); the calibrated benchmark scenes keep
+    # this order so their element counts stay comparable.
     perm = rng.permutation(n)
     return GaussianTable(
         position=position[perm],

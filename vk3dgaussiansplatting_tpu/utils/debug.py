@@ -5,7 +5,7 @@ Equivalents of the reference's debug facilities (SURVEY.md §5):
     VmaDump.json on hotkey T, Renderer.cpp:517-529): a JSON-able listing of
     live device arrays and allocator stats.
   * `nan_guard` — the Vulkan validation layer's closest numerical analogue:
-    enables jax's NaN debugging for a scope (data-race validation has no TPU
+    enables jax's NaN debugging for a scope (data-race validation has no
     analogue — XLA dataflow cannot race).
   * `profiler_trace` — GPU timestamp queries (QueryPoolArray) equivalent:
     wraps `jax.profiler.trace` for a scope; view with TensorBoard/XProf.

@@ -9,7 +9,7 @@ from __future__ import annotations
 import logging
 import sys
 
-_logger = logging.getLogger("vk3dgs_tpu")
+_logger = logging.getLogger("vk3dgs")
 if not _logger.handlers:
     handler = logging.StreamHandler(sys.stdout)
     handler.setFormatter(logging.Formatter("[Log]: %(message)s"))

@@ -1,6 +1,6 @@
 """Morton / Z-order curve encoding.
 
-TPU-native equivalent of the reference's `SMath::encodeZorderCurve`
+Equivalent of the reference's `SMath::encodeZorderCurve`
 (Engine/SMath.h:10-34): 10 bits per component spread to a 30-bit key, used to
 sort gaussians for memory coherence at scene load (ResourceManager.cpp:283-297).
 

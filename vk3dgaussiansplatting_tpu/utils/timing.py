@@ -2,10 +2,9 @@
 
 The reference's `RECORD_GPU_TIMES` mode (Renderer.h:35-36, Renderer.cpp:
 458-510) writes GPU timestamps around each logical pass, skips 1000 warmup
-frames, then reports a 1000-frame running average via a popup.  The TPU
-equivalent times jitted pass functions with `block_until_ready` fences and the
-same warmup/average protocol (configurable, since TPU frames may be cheaper
-or dearer than the reference's).
+frames, then reports a 1000-frame running average via a popup.  The
+equivalent here times jitted pass functions with `block_until_ready` fences
+and the same warmup/average protocol (configurable).
 """
 
 from __future__ import annotations
